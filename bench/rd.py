@@ -2,7 +2,7 @@
 
     python -m bench.rd [--quick]
 
-Byte-identity (the repo's correctness bar) proves the TPU encoder
+Byte-identity (the repo's correctness bar) proves the device encoder
 emits exactly what the oracle emits — this quantifies COMPRESSION
 QUALITY: encode a hun.png-derived motion clip at several QPs with each
 feature rung (intra-only -> GOP -> +search -> +fastsub -> +parts) and
@@ -20,7 +20,7 @@ rung) and the single-operating-point mpeg4.  An x264 comparison needs
 a network-connected host; the JSON marks the anchor codecs explicitly.
 
 Streams are produced by the ORACLE (GopCavlcEncoder) — byte-identical
-to the TPU encoder by the parity suites, so the RD numbers hold for
+to the device encoder by the parity suites, so the RD numbers hold for
 both; PSNR uses the encoder's own reconstruction, which libavcodec
 conformance testing proves equals the decoder's output.
 """
@@ -170,7 +170,7 @@ def main() -> None:
     out = {"what": "RD ladder (PSNR-Y vs kbits/s at 30 fps, 320x192 "
                    "hun.png pan+rotation clip, 16 frames, gop=16); "
                    "streams from the oracle = byte-identical to the "
-                   "TPU encoder; PSNR from the conformance-proven "
+                   "device encoder; PSNR from the conformance-proven "
                    "reconstruction",
            "anchor_note": "no H.264 encoder exists in this container "
                           "(decode-only libavcodec, no x264) — "

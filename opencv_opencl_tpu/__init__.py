@@ -1,15 +1,15 @@
-"""opencv_opencl_tpu — a TPU-native (JAX/XLA/Pallas) video-enhancement framework.
+"""opencv_opencl_tpu — a JAX/XLA/Pallas video-enhancement framework.
 
 A ground-up rebuild of the capabilities of the reference MPSoC project
 ``kimkimhun3/OpenCV-OpenCL`` (real-time histogram equalization and CLAHE on
 the Y plane of NV12 video, 1080p/4K @ 30/60 FPS, with streaming relays and a
-WebRTC sender), designed TPU-first:
+WebRTC sender), designed accelerator-first:
 
 - the OpenCV CPU / OpenCL-FPGA compute paths (reference ``accel.cpp``,
   ``OpenCVequalHist.cpp``, ``CLAHECompare.cpp``) become batched, jitted
-  JAX ops and fused Pallas kernels over frames resident in HBM;
+  JAX ops and fused Pallas kernels over frames resident in device memory;
 - the ARM<->FPGA DMA transfer path (``OpenCLequalHist.cpp:346-365``) becomes
-  a host->TPU double-buffered frame feeder with an out-of-order resequencer
+  a host->device double-buffered frame feeder with an out-of-order resequencer
   (``runtime/``);
 - the measurement harnesses (``1frameMeasure.cpp``, ``clahevideo.cpp``) are
   reproduced so every kernel is bit-compared against ``cv2.equalizeHist`` /
@@ -21,7 +21,7 @@ Subpackages
 -----------
 core      frame layouts (NV12/I420/YUV), OpenCV-exact color conversion,
           numpy golden models (the parity oracles)
-ops       jitted JAX ops + Pallas TPU kernels (histogram, equalizeHist, CLAHE)
+ops       jitted JAX ops + a Pallas GPU kernel (histogram, equalizeHist, CLAHE)
 runtime   frame feeder, leaky queues, resequencer, processing engine
 parallel  device-mesh sharding (frame-batch DP + spatial sharding)
 metrics   streaming counters, status classifier, timing decomposition

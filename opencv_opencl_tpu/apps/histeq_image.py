@@ -3,8 +3,8 @@
 Usage: python -m opencv_opencl_tpu.apps.histeq_image <input.jpg> <output.jpg>
 
 Flow and printout mirror the reference (``singlecolor.cpp:15-110``):
-load -> BGR2YUV -> split -> equalizeHist(Y) on TPU -> merge -> YUV2BGR ->
-save, with the per-stage microsecond breakdown and "potential FPS".
+load -> BGR2YUV -> split -> equalizeHist(Y) on the device -> merge ->
+YUV2BGR -> save, with the per-stage microsecond breakdown and "potential FPS".
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Usage: python -m opencv_opencl_tpu.apps.m2_bench <input.jpg> <output.jpg>
 
 The reference compared split/merge vs zero-copy Mat views to justify the
 zero-copy worker design (``m2.cpp:42-85``, rationale for
-``nextimprovement.cpp``).  The TPU analogue of that choice: METHOD 1 runs
+``nextimprovement.cpp``).  The device analogue of that choice: METHOD 1 runs
 each stage as a separate dispatch (split -> equalize -> merge, device
 round-trips between), METHOD 2 fuses the whole YUV pipeline into one jitted
 XLA program (the framework's actual design).  Printout format mirrors the

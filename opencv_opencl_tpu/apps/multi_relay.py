@@ -26,12 +26,12 @@ Usage:
                          # lowest class and reports whose frame it was,
                          # keeping per-stream drop accounting truthful)
 
-The serving extension of ``relay``: one chip is ~10x faster than a 4K60
-stream needs (docs/RESULTS_R2.md), so production packs many streams per
-chip.  Frames from all streams share device batches via
-``runtime/mux.StreamMux``; outputs route back per stream in order.  The
-reference cannot do this at all — its OpenCL context is process-exclusive
-(``OpenCLequalHist.cpp:106-140``) and each relay binary owns one stream.
+The serving extension of ``relay``: one device has room for several
+streams, so production packs many streams per device.  Frames from all
+streams share device batches via ``runtime/mux.StreamMux``; outputs
+route back per stream in order.  The reference cannot do this at all —
+its OpenCL context is process-exclusive (``OpenCLequalHist.cpp:106-140``)
+and each relay binary owns one stream.
 
 RTP port spacing is 2 per stream because each RTP session's RTCP rides
 its companion port (port+1, io/rtcp.py).
@@ -100,9 +100,9 @@ def run(argv: list[str]) -> int:
         print(f"APPROXIMATE histogram mode: every "
               f"{cfg.hist_downsample}th row (not bit-exact vs cv2)")
     if "mesh" in opts:
-        # multi-chip serving: the stream batch shards over the mesh's
-        # data axis (whole frames per chip), rows over space — N streams
-        # across M chips with the same StreamMux front
+        # multi-device serving: the stream batch shards over the mesh's
+        # data axis (whole frames per device), rows over space — N
+        # streams across M devices with the same StreamMux front
         from opencv_opencl_tpu.parallel.mesh import mesh_from_cli
         from opencv_opencl_tpu.parallel.sharded import ShardedEnhancer
 

@@ -23,7 +23,7 @@ Usage:
                    # downsampling, arXiv:1709.04583); default 1 = exact
       [--duration=seconds] [--max-frames=N] [--status-interval=2]
       [--ref-frame]  # clahe: LUTs from the previous frame (latency
-                     # hiding; fused single-pass kernel on TPU)
+                     # hiding)
       [--max-rate=N] [--adaptive-rate]  # static videorate cap, or an
                      # RTCP-loss-driven AIMD rate loop (native RTP sinks)
       [--rtcp-schedule=tick|rfc3550]  # fixed 2-s SR cadence (reference
@@ -38,7 +38,7 @@ Usage:
 
 Defaults mirror the reference live relay (1920x1080 @ 60, h264, 20 Mbps,
 2 workers: ``OpenCVequalHist.cpp:262-266``).  The worker pool + GAsyncQueue +
-FPGA DMA of the reference become the TPU FrameFeeder (``--workers`` is the
+FPGA DMA of the reference become the device FrameFeeder (``--workers`` is the
 in-flight pipeline depth, clamped to 8 like the reference's thread cap);
 ``--chroma`` selects between the gray (UV=128) and color-preserving
 (passthrough) variants of the reference family; the 2-second status tick and
@@ -250,8 +250,8 @@ def run(argv: list[str]) -> int:
               f"({len(enhancer.mesh.devices.flat)} devices)")
     elif cfg.use_ref_frame and op == "clahe":
         # streaming mode: LUTs from the previous frame's histograms (the
-        # accel.cpp two-input hook) — on TPU the map + hist fuse into one
-        # Pallas pass
+        # accel.cpp two-input hook) — each scan step maps with the
+        # carried LUTs and histograms the frame
         from opencv_opencl_tpu.models.enhancer import StreamingEnhancer
 
         enhancer = StreamingEnhancer(cfg, spec)
@@ -332,13 +332,13 @@ def run(argv: list[str]) -> int:
             print(f"Fused enhance+encode over mesh "
                   f"{dict(mesh.shape)} ({ndev} devices, "
                   f"{'GOP' if fused_gop else 'frame'}-per-device; "
-                  f"frames stay in HBM as pixels)")
+                  f"frames stay in device memory as pixels)")
         elif fused_gop:
             # GOP: the device programs chain recon/frame-index state
             # across batches; padding would advance it on fake frames
             # (deblock and the GDR refresh wave both ride inside the
             # device scan: the filter wavefront keeps the FILTERED
-            # reference in HBM, the marching band is two traced
+            # reference in device memory, the marching band is two traced
             # scalars derived from the frame index)
             fused_fn = build_enhance_gop_fn(
                 cfg, spec, enc.gop, search=enc.search,
@@ -373,9 +373,9 @@ def run(argv: list[str]) -> int:
                 return fused_fn(nv12_batch, jnp.int32(enc.qp))
 
         if mesh is None:
-            print("Fused enhance+encode: frames stay in HBM as "
+            print("Fused enhance+encode: frames stay in device memory as "
                   "pixels; the host receives quantized levels only"
-                  + (f" (GOP {enc.gop}, recon resident in HBM)"
+                  + (f" (GOP {enc.gop}, recon resident in device memory)"
                      if fused_gop else ""))
 
     def on_output(seq, frame, meta):

@@ -76,7 +76,7 @@ def run(argv: list[str]) -> int:
             pipeline = pipeline + " " + gst.silent_audio_branch(
                 webrtc_name="sendrecv")
             medias.append(sdp.media_for_codec("opus", "audio", mid="audio1"))
-    print("=== TPU WebRTC sender ===")
+    print("=== device WebRTC sender ===")
     print(f"Signaling: {ws_url}  room={room}")
     print(f"Config: {width}x{height}@{fps} codec={codec} "
           f"bitrate={bitrate} kbps device={device} "

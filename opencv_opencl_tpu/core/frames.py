@@ -2,7 +2,7 @@
 
 The reference moves raw NV12 byte buffers between GStreamer and its workers
 and builds ``cv::Mat`` *views* over the mapped Y/UV regions rather than
-copying (``nextimprovement.cpp:162-168``).  The TPU equivalent: frames are
+copying (``nextimprovement.cpp:162-168``).  The device equivalent: frames are
 numpy/JAX arrays with explicit plane views, and batched stacks of frames are
 first-class so the device always sees large, static-shaped arrays.
 

@@ -13,13 +13,13 @@ Hosts differ in what encoder they offer, so the relay's
   quantizer, ``:slices=M`` splits frames into M independent slice bands
   (threaded on multi-core hosts, like the reference's num-slices=8).
 - ``tpu``    — the CAVLC encoder with its arithmetic (prediction,
-  transforms, quantization) as ONE jitted TPU program
+  transforms, quantization) as ONE jitted device program
   (ops/h264_levels.py); the host does entropy coding only.  Streams
   byte-identical to ``cavlc:slices=<mb rows>``; honors ``--bitrate``,
   ``tpu:qp=N`` fixes the quantizer, ``tpu:overlap`` pipelines the
   accelerator against host entropy coding (one frame of added latency),
   ``tpu:gop=N`` switches to the low-delay-P GOP stream with the
-  reference picture RESIDENT IN HBM, and ``:search=R`` adds the
+  reference picture RESIDENT IN DEVICE MEMORY, and ``:search=R`` adds the
   device-side full-pel motion search (io.h264_inter.TpuGopEncoder:
   per-MB skip/inter/intra decisions on device, levels-only D2H).
 - ``ffmpeg`` — an external ``ffmpeg`` process fed raw NV12 on stdin,
@@ -245,7 +245,7 @@ class EncodedRtpSink:
 
     def write_packed(self, packed: np.ndarray) -> int:
         """Ship the access unit of one fused-program packed level tensor
-        (models/fused_encode.py; TPU encoder family only).  Returns the
+        (models/fused_encode.py; device encoder family only).  Returns the
         AU bytes shipped, for the caller's byte counters."""
         total = 0
         for au in self.encoder.encode_from_packed(packed):
@@ -458,7 +458,7 @@ def make_encoder(backend: str, width: int, height: int, fps: float = 30.0,
 
             if parts and slices == 1:
                 # partitions need the one-row-slice predictor collapse
-                # (the TPU contract); default there like gdr does
+                # (the device contract); default there like gdr does
                 slices = -(-height // 16)
             kw = dict(slices=slices, search=search, halfpel=halfpel,
                       quarterpel=quarterpel, fastsub=fastsub, refs=refs,
@@ -485,12 +485,12 @@ def make_encoder(backend: str, width: int, height: int, fps: float = 30.0,
                                 bitrate_kbps=bitrate_kbps, fps=fps,
                                 **kw)
     if backend == "tpu" or backend.startswith("tpu:"):
-        # the CAVLC encoder with its arithmetic on the TPU (one jitted
+        # the CAVLC encoder with its arithmetic on the device (one jitted
         # prediction/transform/quant program, ops/h264_levels.py); the
         # host does entropy coding only.  Streams are byte-identical to
         # cavlc:slices=<mb rows>.
         if codec != "h264":
-            raise ValueError("the TPU CAVLC encoder is h264-only")
+            raise ValueError("the device CAVLC encoder is h264-only")
         from opencv_opencl_tpu.io.h264_cavlc import TpuCavlcEncoder
 
         qp = None

@@ -1,8 +1,8 @@
 """GStreamer pipeline description builders + gated launcher.
 
-The reference's L1 media shell is a set of ``gst_parse_launch`` strings; the
-TPU framework keeps that boundary: these builders emit the same pipeline
-descriptions (same elements, same low-latency tuning) with the TPU backend
+The reference's L1 media shell is a set of ``gst_parse_launch`` strings; this
+framework keeps that boundary: these builders emit the same pipeline
+descriptions (same elements, same low-latency tuning) with the device backend
 sitting between an appsink and an appsrc exactly where the reference's
 worker pool sat.  On hosts without GStreamer the builders still work (they
 only produce strings) — ``GstShell`` gates the actual launch.

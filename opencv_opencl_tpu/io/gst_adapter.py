@@ -1,7 +1,7 @@
-"""Live appsink -> TPU -> appsrc bridge over python-gi GStreamer.
+"""Live appsink -> device -> appsrc bridge over python-gi GStreamer.
 
 This is the frame-in/frame-out heart of the reference relays, rebuilt for
-the TPU feeder:
+the device feeder:
 
 - ``new_sample_cb`` (``OpenCVequalHist.cpp:71-98``): pull the sample, cache
   the video info from caps once, count, O(1) enqueue — here

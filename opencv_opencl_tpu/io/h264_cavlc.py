@@ -112,7 +112,7 @@ _LEVEL_CLAMP = 2063
 def level_cost(*arrays) -> int:
     """THE shared CAVLC bit-cost proxy: sum of 2|l| + (l != 0) over
     every coefficient.  The mode decisions of the oracle encoders, the
-    native C++ encoder and the TPU level programs all use exactly this
+    native C++ encoder and the device level programs all use exactly this
     formula (CLAUDE.md: never let them drift) — Python callers must
     use this single definition."""
     c = 0
@@ -1103,7 +1103,7 @@ def encode_frame_from_levels(zdc: np.ndarray, acz: np.ndarray,
                              cmode: np.ndarray | None = None
                              ) -> list[bytes]:
     """Entropy-code precomputed quantized levels into one IDR slice NAL
-    **per MB row** (the slice granularity the TPU level computation in
+    **per MB row** (the slice granularity the device level computation in
     ops/h264_levels.py assumes: top neighbor never available).
 
     Layouts are LevelArrays' (ops/h264_levels.py): ``zdc`` (mb_h, mb_w,
@@ -1380,7 +1380,7 @@ class CavlcH264Encoder:
     def _encode_nals(self, padded: np.ndarray, w16: int, h16: int,
                      idr: int, qp: int) -> list[bytes]:
         """Produce the slice NALs of one padded frame (the overridable
-        compute stage — TpuCavlcEncoder replaces it with the TPU level
+        compute stage — TpuCavlcEncoder replaces it with the device level
         computation)."""
         if self._native and not self.i4 and not self.chromah:
             # the native C++ rows do not speak Intra_4x4 / chroma
@@ -1453,7 +1453,7 @@ class CavlcH264Encoder:
 
 
 class TpuCavlcEncoder(CavlcH264Encoder):
-    """CAVLC intra encoder with the arithmetic on the TPU.
+    """CAVLC intra encoder with the arithmetic on the device.
 
     The compute stage (prediction, 4x4 transforms, DC Hadamards,
     quantization, edge reconstruction) runs as one jitted program on the
@@ -1461,7 +1461,7 @@ class TpuCavlcEncoder(CavlcH264Encoder):
     vectorized over MB rows); the host does entropy coding only (native
     ``fp_cavlc_entropy_rows`` or the Python fallback).  Streams are
     byte-identical to ``CavlcH264Encoder(slices=mb_h)`` — one IDR slice
-    per MB row, the granularity that makes rows TPU-parallel (and the
+    per MB row, the granularity that makes rows device-parallel (and the
     logical limit of the reference's ``num-slices=8`` OMX tuning,
     ``OpenCVequalHist.cpp:313``).
 

@@ -21,7 +21,7 @@ through (libavcodec's alpha_table/beta_table/tc0_table), and every
 entry that any QP can reach is exercised by the QP-sweep conformance
 tests.
 
-Ordering note (the part that fights TPU parallelism): MBs are filtered
+Ordering note (the part that fights device parallelism): MBs are filtered
 in raster order; within an MB all vertical edges left-to-right, then
 all horizontal edges top-to-bottom, each reading samples already
 modified by earlier edges — including the left neighbor's horizontal

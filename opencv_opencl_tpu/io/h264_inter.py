@@ -21,7 +21,7 @@ redundancy; this module adds the missing inter path with a
 - the inter/intra mode decision is a pure function of the two
   candidates' quantized levels (``_cost``: sum of 2|l| + (l != 0) over
   every coded coefficient, intra biased by +8 for its dearer syntax) —
-  deliberately NOT exact-bit trial encoding, so the TPU level program
+  deliberately NOT exact-bit trial encoding, so the device level program
   can reproduce byte-identical decisions without entropy coding in the
   loop;
 - ``search=0`` (default) does no motion search: the design target is
@@ -41,7 +41,7 @@ redundancy; this module adds the missing inter path with a
 - slices are MB-row bands like the intra path, but P bands have NO
   left-to-right dependency at all (prediction reads the previous
   picture, not spatial neighbors) — every band, indeed every MB, is
-  independently computable.  This is what makes the TPU formulation of
+  independently computable.  This is what makes the device formulation of
   the P path (ops/h264_levels.encode_p_levels) a pure elementwise
   program with no scan.
 
@@ -216,7 +216,7 @@ def encode_frame_p_slices(nv12: np.ndarray, recon: tuple, width: int,
     predictor (spec 8.4.1.1) is (0, 0) whenever the top neighbor is
     unavailable OR some zero-MV neighbor triggers the early-out, and
     keeping skip zero-motion means the coded MV field equals the
-    searched field — the property that lets the TPU program pick modes
+    searched field — the property that lets the device program pick modes
     with no raster dependency."""
     if width % 16 or height % 16:
         raise ValueError("P path requires 16-aligned padded frames")
@@ -238,7 +238,7 @@ def encode_frame_p_slices(nv12: np.ndarray, recon: tuple, width: int,
         # sub-16x16 partitions (16x8 / 8x16 / 8x8): per-partition mvd
         # needs the one-row-slice predictor collapse, and the other
         # sequential-state features don't compose (scope mirrors the
-        # TPU program — ops/h264_levels.encode_p_levels parts=1)
+        # device program — ops/h264_levels.encode_p_levels parts=1)
         if not search:
             raise ValueError("parts requires search=R > 0")
         if subpel == 3:
@@ -398,7 +398,7 @@ def search_candidates(search: int) -> list[tuple[int, int]]:
     mv/2 chroma samples, so odd MVs land on half-sample positions —
     handled by the spec's 1/8-pel bilinear (8.4.2.2.2) with fractions
     in {0, 4}, still exact integer arithmetic (:func:`mc_planes`).
-    The order is part of the TPU/oracle byte-exactness contract: both
+    The order is part of the device/oracle byte-exactness contract: both
     sides MUST pick the same MV for the same SAD field.
     """
     if not 1 <= search <= 15:
@@ -418,7 +418,7 @@ SEARCH_KEY_RADIX = 8192
 
 # Partition-decision lambda (SAD units per extra motion vector), the
 # x264-style sqrt-lambda curve quantized to integers so the oracle and
-# the TPU program share ONE exact table: an extra mvd costs ~8 bits,
+# the device program share ONE exact table: an extra mvd costs ~8 bits,
 # and bits cost ~2^((qp-12)/6) SAD each at the inter operating point.
 # Part of the byte-exactness contract like SEARCH_KEY_RADIX.
 PART_LAMBDA = tuple(round(8 * 2 ** ((q - 12) / 6)) for q in range(52))
@@ -568,7 +568,7 @@ def motion_search(y: np.ndarray, ry: np.ndarray, search: int,
     (spec 8.4.2.2.1: xInt = Clip3(0, w-1, ...)), so MVs may point
     outside the frame and stay conformant.  Selection is the argmin of
     ``sad * SEARCH_KEY_RADIX + candidate_index`` (SAD <= 16*16*255 <
-    2^16, so the packing is exact in int32 — the same packing the TPU
+    2^16, so the packing is exact in int32 — the same packing the device
     program uses)."""
     H, W = y.shape
     mb_h, mb_w = H // 16, W // 16
@@ -625,7 +625,7 @@ def motion_search_parts(y: np.ndarray, ry: np.ndarray, search: int,
     hypothesis keeps its own running ``sad * SEARCH_KEY_RADIX + idx``
     key).  The partition mode minimizes ``SAD + PART_LAMBDA[qp] *
     extra_mvs`` with ties preferring coarser partitions — a pure
-    function of the SAD field, reproduced exactly by the TPU program
+    function of the SAD field, reproduced exactly by the device program
     (ops/h264_levels.motion_search_mc_parts).
 
     Returns ``(pmode (mb_h, mb_w) int64 in {0: 16x16, 1: 16x8,
@@ -875,13 +875,13 @@ def motion_search_fast(y: np.ndarray, ry: np.ndarray, search: int,
     around the full-pel one (the standard coarse-to-fine trade;
     x264's subme ladder makes the same bet).
 
-    The refinement stays TPU-uniform because the full-pel winner
+    The refinement stays device-uniform because the full-pel winner
     contributes no fraction: every offset's plane index (off & 3) and
     patch offset (off >> 2) are the SAME for all MBs — the device twin
     (ops.h264_levels.motion_search_mc_fast) exploits exactly this with
     one per-MB recentering gather.  Selection per stage is the argmin
     of ``sad * SEARCH_KEY_RADIX + index`` over the stage's candidate
-    list — the decision rule (both stages) is part of the TPU/oracle
+    list — the decision rule (both stages) is part of the device/oracle
     byte-exactness contract.  Radius may be 1..15 (the quarter-pel
     R<=11 bound does not apply: the stage candidate counts are
     (2R+1)² <= 961 and 49).
@@ -1062,7 +1062,7 @@ def _cost(*arrays) -> int:
     """Deterministic CAVLC bit-cost proxy of quantized levels (the
     single shared definition: io.h264_cavlc.level_cost).  Monotone in
     both magnitude and count (the two drivers of CAVLC length),
-    integer-exact, and reproducible by the TPU level program in int32
+    integer-exact, and reproducible by the device level program in int32
     — the whole point: the mode decision must be a pure function of
     the levels, never of entropy-coded bits."""
     from opencv_opencl_tpu.io.h264_cavlc import level_cost
@@ -1178,7 +1178,7 @@ def _mvp_16x16(mby: int, mbx: int, mv_coded: np.ndarray,
 
     With one slice per MB row, B/C/D are never available and this
     collapses to: mvA when the left MB is inter, else (0, 0) — the
-    shortcut the TPU entropy stage (encode_frame_p_from_levels, native
+    shortcut the device entropy stage (encode_frame_p_from_levels, native
     rows) relies on."""
 
     def fetch(y: int, x: int, avail: bool):
@@ -1732,7 +1732,7 @@ class GopCavlcEncoder:
 
     This is the Python oracle path; the per-frame cost is the intra
     oracle's for IDR frames plus the numpy P loop — the production
-    paths are the TPU level programs (``--encoder=tpu:gop=N``) and the
+    paths are the device level programs (``--encoder=tpu:gop=N``) and the
     native entropy stage they feed.
     """
 
@@ -1987,9 +1987,9 @@ def encode_frame_p_from_levels(mode: np.ndarray, zdc: np.ndarray,
                                ) -> list[bytes]:
     """Entropy-code one P frame from PLevelArrays-layout arrays
     (ops/h264_levels.encode_p_levels) into one slice NAL per MB row —
-    the TPU program's slice granularity.  Byte-identical to
+    the device program's slice granularity.  Byte-identical to
     ``encode_frame_p_slices(..., slices=mb_h)``
-    (tests/test_h264_inter_tpu.py); this is the CPU stage of the TPU
+    (tests/test_h264_inter_tpu.py); this is the CPU stage of the device
     GOP path.
 
     ``mv`` is the (mb_h, mb_w, 2) (dy, dx) QUARTER-pel field from the
@@ -2207,8 +2207,8 @@ def _gop_rate_control(enc, used: int) -> None:
 
 
 class TpuGopEncoder:
-    """Low-delay-P GOP encoder with ALL pixel arithmetic on the TPU and
-    the reference picture RESIDENT IN HBM (io.encoder protocol;
+    """Low-delay-P GOP encoder with ALL pixel arithmetic on the device and
+    the reference picture RESIDENT IN DEVICE MEMORY (io.encoder protocol;
     ``--encoder=tpu:gop=N``).
 
     Per frame, exactly one device program runs — the intra level+recon
@@ -2278,7 +2278,7 @@ class TpuGopEncoder:
                                    else self.subpel)
         if not 1 <= refs <= 2:
             raise ValueError(
-                f"TPU GOP refs must be 1 or 2, got {refs}")
+                f"device GOP refs must be 1 or 2, got {refs}")
         if refs > 1 and not search:
             raise ValueError("refs > 1 requires search=R > 0")
         self.refs = int(refs)
@@ -2303,7 +2303,7 @@ class TpuGopEncoder:
             if cpb_ms is not None:
                 raise ValueError("parts does not compose with cpb")
         # the intra machinery (padding, native/python entropy, SPS/PPS
-        # plumbing) comes from the TPU intra encoder; we swap the SPS
+        # plumbing) comes from the device intra encoder; we swap the SPS
         # for the 1-reference GOP variant and drive our own GOP loop
         self._intra = TpuCavlcEncoder(width, height, qp=qp,
                                       native=native, threads=threads,
@@ -2390,7 +2390,7 @@ class TpuGopEncoder:
                                              hrd=self._cpb.params)
         # in-loop deblocking: every reference picture is the FILTERED
         # reconstruction, computed ON DEVICE by the wavefront program
-        # (ops/h264_deblock.py) so the recon chain stays in HBM.
+        # (ops/h264_deblock.py) so the recon chain stays in device memory.
         # GDR+deblock filters P pictures slice-locally (idc=2, no
         # sample crosses the refresh wave); the IDR keeps idc=0.
         self.deblock = bool(deblock)

@@ -7,9 +7,10 @@ separate series for pure-compute, memory/transfer, and total frame time
 per-N-frame report, and a final summary with FPS and efficiency percentages
 (``:617-635``).
 
-On TPU the "compute" span is the jitted kernel (device execution, measured
-with block_until_ready) and the "memory" span is host->device + device->host
-transfer — the exact analogue of the reference's CLAHE-vs-memcpy split.
+On the device the "compute" span is the jitted kernel (device execution,
+measured with block_until_ready) and the "memory" span is host->device +
+device->host transfer — the exact analogue of the reference's
+CLAHE-vs-memcpy split.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """The flagship "model": a configurable NV12 frame-enhancement pipeline.
 
-This is the TPU equivalent of the reference's worker hot loop
+This is the device equivalent of the reference's worker hot loop
 (``OpenCVequalHist.cpp:102-196``): NV12 in -> enhance Y plane (equalizeHist
 or CLAHE) -> chroma policy (gray / passthrough) -> NV12 out.  One jitted
 function maps a whole *batch* of frames (the data-parallel axis that
-replaces the 1-8 worker threads), uint8 end-to-end in HBM.
+replaces the 1-8 worker threads), uint8 end-to-end in device memory.
 
 The enhancement op runs with the same bit-exact OpenCV semantics as the
 golden models, so the relay output is indistinguishable from the reference's
@@ -113,8 +113,6 @@ def make_enhance_y(cfg: EnhancerConfig, spec: FrameSpec):
                     lut = histeq_ops.equalize_lut(hist, total=total)
                     return histeq_ops.apply_lut(frame, lut)
 
-                if 1 <= y.shape[0] <= 8:
-                    return jnp.stack([one(y[i]) for i in range(y.shape[0])])
                 return jax.vmap(one)(y)
             if cfg.use_ref_frame:
                 # LUT of frame i comes from frame i-1 (frame 0 maps itself):
@@ -146,7 +144,7 @@ def build_enhance_fn(cfg: EnhancerConfig, spec: FrameSpec,
     enhancement, chroma policy and re-concatenation all fuse on device.
 
     ``donate=True`` donates the input buffer to the output (the shapes and
-    dtype match, so XLA aliases them — no second HBM frame allocation, the
+    dtype match, so XLA aliases them — no second device frame allocation, the
     analogue of the reference's pre-allocated per-worker CL buffers,
     ``OpenCLequalHist.cpp:175-192``).  Callers passing host arrays (the
     FrameFeeder path) are unaffected; callers holding a device array must
@@ -184,55 +182,27 @@ def build_streaming_clahe_fn(cfg: EnhancerConfig, spec: FrameSpec):
     Frame i is mapped with tile LUTs built from frame i-1's histograms —
     the two-input latency-hiding design of the reference device kernel
     (``accel.cpp:36-40``, host passes a separate hist source) extended to
-    CLAHE.  The scan runs interp + radix hist per frame; hardware-measured
-    at the SAME throughput as the batch path (1.42 ms/frame at 4K,
-    scripts/tpu_r2_stream_diag.json), so the ref-frame latency hiding is
-    free.  (A single-pass kernel fusing the histogram into the interp dot
-    was built and REJECTED: the in-kernel (256,W)x(TX,W) side-contraction
-    lowers ~4x slower than the separate radix kernel — kept as
-    ``ops.pallas.experiments.clahe_interp_and_hist_natural`` for the record.)
+    CLAHE.  Each scan step interpolates with the carried LUTs and builds
+    the next frame's histograms.
     """
 
     if getattr(cfg, "hist_downsample", 1) != 1:
         raise ValueError(
             "hist_downsample is not supported in the streaming "
             "(ref-frame) mode: its hist carry is exact-only")
-    from opencv_opencl_tpu.ops.pallas import natural
-
     h, w = spec.height, spec.width
     plan = clahe_ops.make_clahe_plan(
         h, w, float(cfg.clip_limit), tuple(cfg.tile_grid))
-    nspec = natural.make_natural_spec(
-        h, w, float(cfg.clip_limit), tuple(cfg.tile_grid))
-    use_natural = jax.default_backend() == "tpu" and nspec is not None
 
     def one(hists, frame):
-        if use_natural:
-            # fused LUT build (clip+cumsum+pack in one pallas dispatch,
-            # bit-exact vs _luts_from_hists — scripts/tpu_r2b_lut3.json)
-            lp = natural.build_lut_pack_pallas(
-                hists, plan.clip, plan.lut_scale, nspec)
-            out = natural.clahe_interpolate_natural(frame, None, nspec,
-                                                    lp=lp)
-            try:
-                new_h = natural.tile_histograms_radix(
-                    clahe_ops._extend(frame, plan), plan.tiles_y,
-                    plan.tiles_x, plan.tile_h, plan.tile_w)
-            except ValueError:  # VMEM budget: scan fallback
-                new_h = clahe_ops._tile_histograms(frame, plan,
-                                                   cfg.hist_method)
-        else:
-            luts = clahe_ops._luts_from_hists(hists, plan)
-            out = clahe_ops._interpolate(frame, luts, plan)
-            new_h = clahe_ops._tile_histograms(frame, plan, cfg.hist_method)
+        luts = clahe_ops._luts_from_hists(hists, plan)
+        out = clahe_ops._interpolate(frame, luts, plan)
+        new_h = clahe_ops._tile_histograms(frame, plan, cfg.hist_method)
         return new_h, out
 
     def fn(nv12_batch, prev_hists):
         y = nv12_batch[:, :h, :]
         uv = nv12_batch[:, h:, :]
-        # scan, not an unrolled chain: unrolling was measured at only
-        # 1.392 vs 1.41 ms/frame (scripts/tpu_r3_stream.json) but cost a
-        # ~10x longer XLA compile — wrong trade for a live relay's startup
         last_h, y_out = jax.lax.scan(one, prev_hists, y)
         uv_out = (jnp.full_like(uv, 128)
                   if cfg.chroma == ChromaPolicy.GRAY else uv)

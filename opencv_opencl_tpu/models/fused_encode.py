@@ -1,11 +1,11 @@
 """Fused enhance + H.264 level computation: one device program.
 
-The relay's TPU-encoder path (``--sink=rtp+h264:// --encoder=tpu``)
+The relay's device-encoder path (``--sink=rtp+h264:// --encoder=tpu``)
 would otherwise round-trip every enhanced frame through the host: D2H
 of the enhanced NV12 out of the enhancement program, then H2D of the
 same bytes back into the level program — ~25 MB/frame of PCIe traffic
 at 4K, plus an extra dispatch.  Fusing the two into ONE jitted program
-keeps frames in HBM as *pixels* end-to-end; the only thing that ever
+keeps frames in device memory as *pixels* end-to-end; the only thing that ever
 comes down is the quantized levels the host entropy coder needs.
 
 This mirrors the reference's datapath, where the VCU hardware encoder
@@ -139,7 +139,7 @@ def build_enhance_gop_fn(cfg: EnhancerConfig, spec: FrameSpec, gop: int,
     ``fn(nv12_batch: uint8[N, H*3/2, W], qp: int32, idx0: int32,
     *recon) -> (int16[N, mb_h, mb_w, L], *recon')`` — recon is 3
     planes (ry, rcb, rcr), or 6 with ``refs=2`` (both reference
-    pictures persist ACROSS batches in HBM; the frame right after
+    pictures persist ACROSS batches in device memory; the frame right after
     each IDR runs a single-reference branch).  L = 412 lanes when
     ``search`` > 0 (two per-MB MV lanes from the device motion search
     ride down with the levels), 413 with refs=2 (the per-MB reference
@@ -151,7 +151,7 @@ def build_enhance_gop_fn(cfg: EnhancerConfig, spec: FrameSpec, gop: int,
     (per-MB skip/inter/intra decisions) under ``lax.cond``, chained by
     a ``lax.scan`` over the batch because each P frame predicts from
     the previous frame's reconstruction — which therefore NEVER leaves
-    HBM (the old recon buffers are donated).  The host receives only
+    device memory (the old recon buffers are donated).  The host receives only
     packed levels (+ in-band qp and mode lanes) and entropy-codes.
 
     Stream-order caveat: the recon/idx chain advances once per frame
@@ -206,7 +206,7 @@ def build_enhance_gop_fn(cfg: EnhancerConfig, spec: FrameSpec, gop: int,
     if deblock:
         # in-loop filter inside the device recon chain (idc=0, same
         # contract as TpuGopEncoder._dispatch: the reference picture
-        # is the FILTERED reconstruction and never leaves HBM)
+        # is the FILTERED reconstruction and never leaves device memory)
         from opencv_opencl_tpu.ops.h264_deblock import deblock_planes
 
         _dbi_idr = (jnp.ones((mbh, mbw), jnp.bool_),

@@ -23,7 +23,7 @@ __all__ = ["Preset", "PRESETS", "build"]
 
 @dataclasses.dataclass(frozen=True)
 class Preset:
-    """A reference program's configuration, TPU-side."""
+    """A reference program's configuration, device-side."""
 
     reference: str            # source file / binary it mirrors
     description: str
@@ -63,7 +63,7 @@ PRESETS: dict[str, Preset] = {
         enhancer=EnhancerConfig(op="histeq", chroma=ChromaPolicy.PASSTHROUGH),
         encoder=EncoderConfig(codec="h264", bitrate_kbps=20000),
     ),
-    # OpenCLequalHist.cpp: FPGA-offload relay — here the TPU *is* the
+    # OpenCLequalHist.cpp: FPGA-offload relay — here the device *is* the
     # accelerator; two-input ref-frame hook retained
     "opencl": Preset(
         reference="OpenCLequalHist.cpp + accel.cpp",

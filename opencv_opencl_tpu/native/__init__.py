@@ -539,7 +539,7 @@ def cavlc_entropy_rows(zdc: np.ndarray, acz: np.ndarray,
                        cmode: np.ndarray | None = None) -> list[bytes]:
     """Native entropy coding of precomputed quantized levels
     (ops/h264_levels.py LevelArrays) into one IDR slice NAL per MB row
-    — the CPU stage of the TPU encode path.  ``imode`` is the per-MB
+    — the CPU stage of the device encode path.  ``imode`` is the per-MB
     intra pred mode plane (0 = I_4x4, 1 = HORIZONTAL, 2 = DC; None =
     all DC); ``i4modes`` the z-scan (mb_h, mb_w, 16) block-mode field
     used where imode == 0 (acz then carries FULL 16-coeff blocks);
@@ -622,7 +622,7 @@ def cavlc_entropy_rows_p(mode: np.ndarray, zdc: np.ndarray,
                          ref4: np.ndarray | None = None) -> list[bytes]:
     """Native entropy coding of one P frame's chosen-mode levels
     (ops/h264_levels.py PLevelArrays) into one P slice NAL per MB row —
-    the CPU stage of the TPU GOP path.  ``mv`` is the (mb_h, mb_w, 2)
+    the CPU stage of the device GOP path.  ``mv`` is the (mb_h, mb_w, 2)
     (dy, dx) QUARTER-pel field from the device motion search (None =
     zero motion); ``ref``/``active_refs`` the multi-reference
     configuration (te(v)-coded ref_idx_l0 when active_refs > 1).

@@ -1,6 +1,6 @@
-// framepipe.cpp — native frame-transport runtime for the TPU feeder.
+// framepipe.cpp — native frame-transport runtime for the device feeder.
 //
-// The TPU-native counterpart of the reference's C/C++ L2 transport:
+// The device-native counterpart of the reference's C/C++ L2 transport:
 // GAsyncQueue + preallocated GstBuffers + the binary-only ProcessedFrame
 // resequencer (reference OpenCVequalHist.cpp:71-98, improvement ELF).
 // Python-level per-frame work (slicing, memcpy, dict bookkeeping) costs
@@ -1604,7 +1604,7 @@ extern "C" int64_t fp_cavlc_encode_slices(
 
 namespace cavlc {
 
-// Entropy-only MB encode from precomputed quantized levels (the TPU
+// Entropy-only MB encode from precomputed quantized levels (the device
 // path: ops/h264_levels.py computes LevelArrays on-device, this writes
 // the bitstream — the only CPU stage left).  Layouts are LevelArrays':
 // zdc 16 raster, acz 16 blocks x 16 raster coeffs (DC slot zero),
@@ -2075,7 +2075,7 @@ static void entropy_p_mb_parts(
 }  // namespace cavlc
 
 // Entropy-code precomputed quantized levels (LevelArrays layouts, one
-// IDR slice NAL per MB row — the TPU encode path's CPU stage).  Heads
+// IDR slice NAL per MB row — the device encode path's CPU stage).  Heads
 // as in fp_cavlc_encode_slices (packed bits, byte-padded per slice).
 // Slice i's RBSP goes to scratch+i*stride, the escaped NAL to
 // out+i*stride, its length into out_lens[i].  Returns 0, or -1 on bad

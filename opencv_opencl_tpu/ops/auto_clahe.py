@@ -71,14 +71,6 @@ def _jitted_auto(height, width, tile_grid, clip_min, clip_max, method):
         clip = estimate_clip_limit(y, clip_min, clip_max)
         hists = _tile_histograms(y, plan, method)
         luts = _luts_with_traced_clip(hists, plan, clip)
-        if jax.default_backend() == "tpu":
-            from opencv_opencl_tpu.ops.pallas import lut_kernels
-
-            spec = lut_kernels.make_interp_spec(
-                height, width, 40.0, tile_grid
-            )
-            if spec is not None:
-                return lut_kernels.clahe_interpolate_pallas(y, luts, spec), clip
         return _interpolate(y, luts, plan), clip
 
     def fn(y):

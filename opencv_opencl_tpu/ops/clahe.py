@@ -1,6 +1,6 @@
-"""CLAHE as jitted JAX ops — OpenCV-exact, batched, TPU-first.
+"""CLAHE as jitted JAX ops — OpenCV-exact, batched.
 
-The TPU replacement for ``cv::CLAHE::apply`` on the reference's worker
+The device replacement for ``cv::CLAHE::apply`` on the reference's worker
 thread (``CLAHECompare.cpp:143-150``, ``clahe1frame.cpp:88-95``).
 
 Design
@@ -34,7 +34,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from opencv_opencl_tpu.ops.histogram import hist256
+from opencv_opencl_tpu.ops.histogram import tile_histograms
 
 __all__ = ["ClahePlan", "make_clahe_plan", "clahe_apply", "clahe", "CLAHE"]
 
@@ -155,12 +155,8 @@ def _tile_histograms(y: jax.Array, plan: ClahePlan, method: str,
     if rowstep > 1:
         ext = ext[::rowstep]
         tile_h = plan.tile_h // rowstep
-    tiles = (
-        ext.reshape(plan.tiles_y, tile_h, plan.tiles_x, plan.tile_w)
-        .transpose(0, 2, 1, 3)
-        .reshape(plan.num_tiles, tile_h * plan.tile_w)
-    )
-    hists = jax.vmap(lambda t: hist256(t, method))(tiles)
+    hists = tile_histograms(ext, plan.tiles_y, plan.tiles_x, tile_h,
+                            plan.tile_w, method)
     if rowstep > 1:
         hists = hists * rowstep  # counts approximate the full tile area
     return hists
@@ -233,9 +229,15 @@ def _interpolate_rows(
     (traced) global row index ``row_start`` — the spatially-sharded path,
     where each device owns a horizontal band of the frame."""
     rows_loc = y.shape[-2]
-    ty1 = jax.lax.dynamic_slice(jnp.asarray(plan.ty1), (row_start,), (rows_loc,))[:, None]
-    ty2 = jax.lax.dynamic_slice(jnp.asarray(plan.ty2), (row_start,), (rows_loc,))[:, None]
-    ya = jax.lax.dynamic_slice(jnp.asarray(plan.ya), (row_start,), (rows_loc,))[:, None]
+
+    def band(a):
+        # edge-pad by one band so a band that reaches past the frame (pad
+        # rows the caller slices away) never clamps the slice start
+        a = np.pad(a, (0, rows_loc), mode="edge")
+        return jax.lax.dynamic_slice(
+            jnp.asarray(a), (row_start,), (rows_loc,))[:, None]
+
+    ty1, ty2, ya = band(plan.ty1), band(plan.ty2), band(plan.ya)
     tx1 = jnp.asarray(plan.tx1)[None, :]
     tx2 = jnp.asarray(plan.tx2)[None, :]
     xa = jnp.asarray(plan.xa)[None, :]
@@ -251,34 +253,12 @@ def _interpolate_rows(
     return _blend(l11, l12, l21, l22, xa, xa1, ya, ya1)
 
 
-def _tile_hists_fast(y: jax.Array, plan: ClahePlan, method: str,
-                     rowstep: int) -> jax.Array:
-    """Radix-kernel tile histograms with VMEM fallback, honoring the
-    approximate ``rowstep`` subsampling (counts rescaled)."""
-    from opencv_opencl_tpu.ops.pallas import natural
-
-    ext = _extend(y, plan)
-    tile_h = plan.tile_h
-    if rowstep > 1:
-        ext = ext[::rowstep]
-        tile_h = plan.tile_h // rowstep
-    try:
-        hists = natural.tile_histograms_radix(
-            ext, plan.tiles_y, plan.tiles_x, tile_h, plan.tile_w)
-    except ValueError:  # tile exceeds VMEM budget: scan fallback
-        return _tile_histograms(y, plan, method, rowstep=rowstep)
-    if rowstep > 1:
-        hists = hists * rowstep
-    return hists
-
-
 def clahe_apply(y: jax.Array, plan: ClahePlan, method: str = "onehot",
-                backend: str = "auto", hist_rowstep: int = 1) -> jax.Array:
+                hist_rowstep: int = 1) -> jax.Array:
     """CLAHE one frame (H, W) or a batch (N, H, W) against a prebuilt plan.
 
-    backend: "pallas" (MXU one-hot interpolation — the fast TPU path),
-    "xla" (gather-based), or "auto" (pallas when the geometry admits the
-    uniform-cell kernel, else xla).
+    ``method`` is the XLA histogram formulation used where the histogram
+    kernel does not run (see :func:`ops.histogram.tile_histograms`).
 
     hist_rowstep: 1 = exact (the default; bit-exact vs cv2).  N > 1 is
     the opt-in APPROXIMATE fast-histogram mode: per-tile histograms are
@@ -292,74 +272,17 @@ def clahe_apply(y: jax.Array, plan: ClahePlan, method: str = "onehot",
                 f"hist_rowstep={hist_rowstep} must divide tile_h "
                 f"({plan.tile_h})")
     if y.ndim == 3:
-        if 1 <= y.shape[0] <= 8:
-            # unrolled per-frame dispatches beat vmap-over-pallas for
-            # small static batches (measured at 4K b4: hist 0.444 vs
-            # 0.548, interp 0.903 vs 0.949 ms/frame —
-            # scripts/tpu_r3_batchmap.json); compile size bounds the
-            # unroll at 8
-            return jnp.stack(
-                [clahe_apply(y[i], plan, method, backend, hist_rowstep)
-                 for i in range(y.shape[0])])
         return jax.vmap(
-            lambda f: clahe_apply(f, plan, method, backend, hist_rowstep)
-        )(y)
-    # hardware-validated round 2 (scripts/tpu_r2_kernels.json): natural
-    # kernel 0 LSB at 4K/1080p/1919x1079 and 2.2x the cell-grid pipeline
-    # (1.76 vs 3.92 ms/frame at 4K) -> the TPU default
-    if backend == "natural" or (
-        backend == "auto" and jax.default_backend() == "tpu"
-    ):
-        from opencv_opencl_tpu.ops.pallas import natural
-
-        nspec = natural.make_natural_spec(
-            plan.height, plan.width, plan.clip_limit,
-            (plan.tiles_x, plan.tiles_y),
-        )
-        if nspec is not None:
-            hists = _tile_hists_fast(y, plan, method, hist_rowstep)
-            # fused LUT build: clip+redistribute+cumsum+scale+pack in ONE
-            # pallas dispatch (bit-exact vs _luts_from_hists + take)
-            lp = natural.build_lut_pack_pallas(
-                hists, plan.clip, plan.lut_scale, nspec)
-            return natural.clahe_interpolate_natural(y, None, nspec, lp=lp)
-        if backend == "natural":
-            raise ValueError(
-                f"width {plan.width} exceeds the natural-kernel VMEM budget"
-            )
-    # cell-grid kernel: explicit opt-in or the auto fallback for widths
-    # beyond the natural kernel's VMEM budget
-    use_pallas = backend == "pallas" or (
-        backend == "auto" and jax.default_backend() == "tpu"
-    )
-    if use_pallas:
-        from opencv_opencl_tpu.ops.pallas import lut_kernels
-
-        spec = lut_kernels.make_interp_spec(
-            plan.height, plan.width, plan.clip_limit,
-            (plan.tiles_x, plan.tiles_y),
-        )
-        if spec is not None:
-            # radix-16 pallas histogram (hardware: 3.2x the 256-row compare
-            # kernel at 4K, which itself was ~7x the XLA scan)
-            hists = _tile_hists_fast(y, plan, method, hist_rowstep)
-            luts = _luts_from_hists(hists, plan)
-            return lut_kernels.clahe_interpolate_pallas(y, luts, spec)
-        if backend == "pallas":
-            raise ValueError(
-                f"geometry {plan.height}x{plan.width} grid "
-                f"{plan.tiles_x}x{plan.tiles_y} has no pallas fast path"
-            )
+            lambda f: clahe_apply(f, plan, method, hist_rowstep))(y)
     hists = _tile_histograms(y, plan, method, rowstep=hist_rowstep)
     luts = _luts_from_hists(hists, plan)
     return _interpolate(y, luts, plan)
 
 
 @functools.lru_cache(maxsize=64)
-def _jitted_apply(height, width, clip_limit, tile_grid, method,
-                  backend="auto"):
+def _jitted_apply(height, width, clip_limit, tile_grid, method):
     plan = make_clahe_plan(height, width, clip_limit, tile_grid)
-    return jax.jit(lambda y: clahe_apply(y, plan, method, backend))
+    return jax.jit(lambda y: clahe_apply(y, plan, method))
 
 
 def clahe(
@@ -367,12 +290,10 @@ def clahe(
     clip_limit: float = 40.0,
     tile_grid: tuple[int, int] = (8, 8),
     method: str = "onehot",
-    backend: str = "auto",
 ) -> jax.Array:
     """One-shot OpenCV-exact CLAHE (jit-cached per frame shape)."""
     h, w = y.shape[-2], y.shape[-1]
-    return _jitted_apply(h, w, float(clip_limit), tuple(tile_grid), method,
-                         backend)(y)
+    return _jitted_apply(h, w, float(clip_limit), tuple(tile_grid), method)(y)
 
 
 class CLAHE:

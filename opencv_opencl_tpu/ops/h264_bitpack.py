@@ -1,5 +1,5 @@
 """Device CAVLC bit-packing: the entropy stage's bit-level work as
-part of the TPU program.
+part of the device program.
 
 The host entropy stage is the in-repo encoder's only CPU stage
 (io/h264_cavlc.py; threaded C++ rows in native/framepipe.cpp).  Its

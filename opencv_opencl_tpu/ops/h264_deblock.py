@@ -1,8 +1,8 @@
-"""Device-side H.264 in-loop deblocking (spec 8.7) — the TPU recon chain.
+"""Device-side H.264 in-loop deblocking (spec 8.7) — the device recon chain.
 
 The oracle (io/h264_deblock.py) defines correctness; this module makes
 the FILTERED reference picture computable on the accelerator so the
-TPU GOP encoder's reconstruction chain never leaves HBM when the
+device GOP encoder's reconstruction chain never leaves device memory when the
 in-loop filter is on.
 
 The spec's per-MB raster ordering is a 2D wavefront: with V(i,j)/H(i,j)
@@ -30,8 +30,7 @@ indexing, applies the 4 vertical then 4 horizontal edge filters
 scatters the patches back.  Lanes whose diagonal position falls outside
 the picture are redirected to a PER-LANE scratch macroblock column
 (padded to the right of the picture) with bS = 0 — identity work, no
-write collisions.  Pure XLA (gather/scatter + elementwise); no Mosaic
-constraints apply.
+write collisions.  Pure XLA (gather/scatter + elementwise).
 
 Bit-exactness vs the oracle is proven in tests/test_h264_deblock_tpu.py
 (random pictures + adversarial metadata on the CPU backend), and the

@@ -1,4 +1,4 @@
-"""TPU computation of H.264 intra CAVLC quantized levels.
+"""Device computation of H.264 intra CAVLC quantized levels.
 
 The reference always encodes before emitting (``omxh264enc`` in every
 relay, ``/root/reference/OpenCVequalHist.cpp:308-332``); its encoder is
@@ -6,7 +6,7 @@ a hardware block (the VCU).  The in-repo analogue is the CAVLC intra
 encoder (io/h264_cavlc.py oracle, native C++ production path) — whose
 profile shows the *arithmetic* (prediction, 4x4 integer transforms, DC
 Hadamards, quantization, reconstruction) dominating and the entropy
-coding a minority.  This module moves that arithmetic onto the TPU:
+coding a minority.  This module moves that arithmetic onto the device:
 
 - one **slice per MB row** (the logical limit of the reference's
   ``num-slices=8`` OMX tuning): H.264 slices share no contexts, so the
@@ -14,8 +14,7 @@ coding a minority.  This module moves that arithmetic onto the TPU:
   *left* reconstructed macroblock — a ``lax.scan`` over MB columns,
   fully vectorized over MB rows (and over batched frames, which simply
   concatenate on the row axis);
-- all arithmetic is int32 on the VPU (exact; MXU dots are bf16-split
-  and inexact for wide ints — see CLAUDE.md), byte-for-byte identical
+- all arithmetic is int32 (exact), byte-for-byte identical
   to the oracle's int64 math because every intermediate provably fits
   int32 (bounds in the docstrings below);
 - the scan carries only the reconstructed *right edge* of each
@@ -36,30 +35,22 @@ through libavcodec.
 
 from __future__ import annotations
 
-import os
-from functools import lru_cache, partial
+from functools import partial
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-# MB-column scan unroll: the level scans run mb_w tiny sequential
-# steps (240 at 4K), so per-iteration fixed cost dominates the now-
-# MXU-accelerated programs; unrolling is a PURE loop transformation
-# (byte-exact — proven on chip, scripts/tpu_r5_unroll.json
-# equal_vs_unroll1).  Hardware-probed: unroll=8 takes the fused 4K
-# search=2 program 15.83 -> 14.13 ms/frame (70.8 fps) and leaves the
-# standalone P program within noise.  CPU backends keep unroll=1
-# (8x trace size would only slow the test suite's compiles — the
-# outputs are identical either way).  Env override for probing.
-_SCAN_UNROLL_ENV = os.environ.get("OPENCV_TPU_SCAN_UNROLL")
-
-
 def _scan_unroll() -> int:
-    if _SCAN_UNROLL_ENV is not None:
-        return int(_SCAN_UNROLL_ENV)
-    return 8 if jax.default_backend() == "tpu" else 1
+    """Unroll factor of the MB-column level scans (mb_w sequential steps,
+    240 at 4K).  Unrolling is a pure loop transformation: the levels are
+    identical either way.  On the GPU, 8 takes the fused 1080p search=8
+    P program from 20.05 to 15.62 ms/frame, at about ten times the
+    compile time (NVIDIA H100 80GB HBM3, 700 W).  The CPU keeps 1: the
+    eightfold trace would only slow the tests' compiles."""
+    return 8 if jax.default_backend() == "gpu" else 1
+
 
 __all__ = ["LevelArrays", "encode_levels", "encode_levels_jit",
            "encode_levels_recon_jit", "PLevelArrays", "encode_p_levels",
@@ -289,8 +280,7 @@ def encode_levels(y: jax.Array, cb: jax.Array, cr: jax.Array,
     planes ``(LevelArrays, ry, rcb, rcr)`` — the reference picture the
     GOP encoder's P frames predict from (it stays on device).  The
     default edge-only path is untouched: it reconstructs just the
-    right column each scan step (cheaper; the hardware-timed intra
-    configuration).
+    right column each scan step (cheaper).
     """
     H, W = y.shape
     if H % 16 or W % 16:
@@ -725,7 +715,7 @@ def _base_planes_jax(ry: jax.Array, margin: int,
     j = jnp.clip((j1 + 512) >> 10, 0, 255)
     # uint8 storage: every plane is a clipped pixel value — the search
     # loop re-reads these once per candidate, so narrow storage cuts
-    # its HBM traffic 4x vs int32 with identical integer values
+    # its device memory traffic 4x vs int32 with identical integer values
     return [g.astype(jnp.uint8), b.astype(jnp.uint8),
             h.astype(jnp.uint8), j.astype(jnp.uint8)]
 
@@ -756,83 +746,22 @@ def quarterpel_planes_jax(ry: jax.Array, margin: int) -> jax.Array:
     ]).astype(jnp.uint8)
 
 
-@lru_cache(maxsize=None)
-def _sad_block_mats(H: int, W: int, b: int):
-    """Block-ones matrices for the two-dot MXU SAD reduction:
-    ``RB (H/b, H) @ |ad| @ CB (W, W/b)`` equals the block-b SAD field.
-    Cached per geometry; returned as numpy so they become compile-time
-    constants under jit."""
-    cb = np.zeros((W, W // b), np.float32)
-    rb = np.zeros((H // b, H), np.float32)
-    for j in range(W // b):
-        cb[j * b:(j + 1) * b, j] = 1.0
-    for i in range(H // b):
-        rb[i, i * b:(i + 1) * b] = 1.0
-    return rb, cb
-
-
 def _sad_field(ad: jax.Array, b: int) -> jax.Array:
-    """Exact block-``b`` SAD of a flat (H, W) difference via two MXU
-    block-ones dots — hardware-measured EXACT and 7x (b=16) / 21x
-    (b=8) faster than the VPU window reduce
-    (scripts/tpu_r5_mxu_sad.json: sum|vpu-mxu| = 0 over all 289
-    full-pel offsets at 1080p).
-
-    Exactness argument (per the measured bf16-split rule, CLAUDE.md /
-    scripts/tpu_r2b_lut.json): the inner dot's operands are |ad| <=
-    255 (8-bit, bf16-exact) and 0/1 block columns, so the default
-    split passes are exact; the outer dot's colsum operand holds up to
-    b*255 <= 4080 (12 bits), which needs ``Precision.HIGHEST`` split
-    passes (exact for <= 15-bit operands).  Accumulation is f32 and
-    every block sum <= 65280 < 2^24, so the cast back to int32 is
-    exact.  On CPU both dots are plain f32 FMA over integers < 2^24 —
-    exact as well, keeping the TPU/oracle byte-identity contract.
-    """
+    """Block-``b`` SAD field of a flat (H, W) difference, int32
+    (H/b, W/b).  |ad| <= 255, so every block sum (<= 65280) is exact in
+    int32."""
     H, W = ad.shape
-    rb, cb = _sad_block_mats(H, W, b)
-    a = jnp.abs(ad).astype(jnp.float32)
-    return jnp.dot(jnp.asarray(rb), a @ jnp.asarray(cb),
-                   precision=jax.lax.Precision.HIGHEST
-                   ).astype(jnp.int32)
-
-
-@lru_cache(maxsize=None)
-def _sad_quad_mats(H: int, W: int):
-    """Quadrant-split block-ones matrices: even/odd 8-wide halves of
-    each 16 block, so each MB-quadrant SAD comes off the MXU as a
-    clean (mb_h, mb_w) array with no strided slices (Mosaic/XLA
-    relayouts were the measured 22x parts slowdown —
-    scripts/tpu_r5_parts_diag.log)."""
-    mb_h, mb_w = H // 16, W // 16
-    cbe = np.zeros((W, mb_w), np.float32)
-    cbo = np.zeros((W, mb_w), np.float32)
-    rbe = np.zeros((mb_h, H), np.float32)
-    rbo = np.zeros((mb_h, H), np.float32)
-    for j in range(mb_w):
-        cbe[j * 16:j * 16 + 8, j] = 1.0
-        cbo[j * 16 + 8:j * 16 + 16, j] = 1.0
-    for i in range(mb_h):
-        rbe[i, i * 16:i * 16 + 8] = 1.0
-        rbo[i, i * 16 + 8:i * 16 + 16] = 1.0
-    return rbe, rbo, cbe, cbo
+    return jnp.abs(ad.astype(jnp.int32)).reshape(
+        H // b, b, W // b, b).sum(axis=(1, 3))
 
 
 def _sad_quad_fields(ad: jax.Array):
     """The four MB-quadrant SADs (q0 tl, q1 tr, q2 bl, q3 br), each
-    (mb_h, mb_w) int32, via two colsum dots + four tiny row dots on
-    the MXU.  Same exactness argument as :func:`_sad_field` (8x8 sums
-    <= 16320 < 2^24)."""
+    (mb_h, mb_w) int32, from one 8x8 block reduction."""
     H, W = ad.shape
-    rbe, rbo, cbe, cbo = _sad_quad_mats(H, W)
-    a = jnp.abs(ad).astype(jnp.float32)
-    ce = a @ jnp.asarray(cbe)
-    co = a @ jnp.asarray(cbo)
-    hp = jax.lax.Precision.HIGHEST
-    q0 = jnp.dot(jnp.asarray(rbe), ce, precision=hp).astype(jnp.int32)
-    q1 = jnp.dot(jnp.asarray(rbe), co, precision=hp).astype(jnp.int32)
-    q2 = jnp.dot(jnp.asarray(rbo), ce, precision=hp).astype(jnp.int32)
-    q3 = jnp.dot(jnp.asarray(rbo), co, precision=hp).astype(jnp.int32)
-    return q0, q1, q2, q3
+    q = jnp.abs(ad.astype(jnp.int32)).reshape(
+        H // 16, 2, 8, W // 16, 2, 8).sum(axis=(2, 5))
+    return q[:, 0, :, 0], q[:, 0, :, 1], q[:, 1, :, 0], q[:, 1, :, 1]
 
 
 def motion_search_mc(y: jax.Array, ry: jax.Array, rcb: jax.Array,
@@ -924,8 +853,8 @@ def motion_search_mc(y: jax.Array, ry: jax.Array, rcb: jax.Array,
         ref = jax.lax.dynamic_slice(
             pstack, (pidx_arr[i], margin + (qy >> 2),
                      margin + (qx >> 2)), (1, H, W))[0]
-        # |diff| <= 255 fits int16; block sums (max 65280) exact via
-        # the MXU block-ones dots (see _sad_field)
+        # |diff| <= 255 fits int16; block sums (max 65280) are exact
+        # in int32 (see _sad_field)
         sad = _sad_field(cur - ref.astype(jnp.int16), 16)
         key = sad * SEARCH_KEY_RADIX + i
         if clean_rows is not None:
@@ -965,7 +894,7 @@ def motion_search_mc_fast(y: jax.Array, ry: jax.Array, rcb: jax.Array,
     dynamic-slice loop, but carries only the packed selection key (no
     prediction accumulation — the refinement re-reads the winner).
 
-    Stage 2 is the TPU-shaped half of the design: ONE per-MB
+    Stage 2 is the device-shaped half of the design: ONE per-MB
     recentering gather pulls a 17x17 patch around each MB's full-pel
     winner out of every spec 8.4.2.2.1 sub-sample plane
     (16, mb_h, mb_w, 17, 17), and then ALL 49 refinement offsets in
@@ -1256,15 +1185,9 @@ def motion_search_mc_parts(y: jax.Array, ry: jax.Array, rcb: jax.Array,
     pidx_arr = jnp.asarray(pidx)
     R = SEARCH_KEY_RADIX
 
-    # Layout note (measured on hardware, scripts/tpu_r5_parts_diag):
-    # an interleaved (mb_h, 2, 8, mb_w, 2, 8) SAD reduce costs 15x the
-    # (mb_h, 16, mb_w, 16) one, and per-iteration sums over the tiny
-    # interleaved key arrays another ~300 ms/frame — all relayouts.
-    # So the loop carries NINE clean (mb_h, mb_w) int32 keys (four
-    # quadrants, four halves, whole MB); each quadrant SAD comes off
-    # the MXU via the quadrant-split block-ones dots (_sad_quad_fields
-    # — hardware-measured 21x over the VPU 8x8 window reduce,
-    # scripts/tpu_r5_mxu_sad.json); the halves/whole are plain adds.
+    # The loop carries NINE (mb_h, mb_w) int32 keys (four quadrants,
+    # four halves, whole MB): the quadrant SADs come from one 8x8 block
+    # reduction (_sad_quad_fields), the halves/whole are plain adds.
     def body(i, st):
         kq0, kq1, kq2, kq3, kh0, kh1, kv0, kv1, kf = st
         idx = i % n
@@ -1335,9 +1258,8 @@ def motion_search_mc_parts(y: jax.Array, ry: jax.Array, rcb: jax.Array,
 
     # ---- MC at quadrant granularity (oracle: mc_planes block=8): a
     # SECOND uniform-dynamic-slice sweep selecting each quadrant's
-    # pixels where its chosen candidate comes up — gathers are far
-    # slower than n more uniform passes on this hardware (measured:
-    # the per-quadrant patch gather cost 735 ms/frame at 1080p R=8)
+    # pixels where its chosen candidate comes up (uniform slices, no
+    # per-quadrant patch gather)
     iq8 = iq.reshape(2 * mb_h, 2 * mb_w)
     cs = search // 2 + 1
     rcb_list = [rcb] + ([refs2[1]] if refs2 is not None else [])
@@ -1513,7 +1435,7 @@ def encode_p_levels(y: jax.Array, cb: jax.Array, cr: jax.Array,
     mv == (0, 0) (== the skip MV predictor when the top neighbor is in
     another slice), so the coded MV field always equals the searched
     field and mvd becomes a pure host entropy-stage function.
-    All int32 VPU arithmetic, like the intra program.
+    All int32 arithmetic, like the intra program.
     """
     H, W = y.shape
     if H % 16 or W % 16:

@@ -1,6 +1,6 @@
 """Global histogram equalization as jitted JAX ops (single frame + batched).
 
-The TPU replacement for the reference's compute core: ``cv::equalizeHist``
+The device replacement for the reference's compute core: ``cv::equalizeHist``
 on the worker thread (``OpenCVequalHist.cpp:145``) and the FPGA kernel
 ``equalizeHist_accel`` (``accel.cpp:36-61``).  Like the FPGA kernel, the op
 is *two-input*: the histogram/CDF may come from a separate reference frame
@@ -9,9 +9,9 @@ is *two-input*: the histogram/CDF may come from a separate reference frame
 which also enables previous-frame-CDF latency hiding in streaming mode.
 
 Batched variants treat the frame batch as the "data parallel" axis — the
-TPU analogue of the reference's worker-thread pool over a frame queue
-(``OpenCVequalHist.cpp:396-402``): instead of 1-8 CPU workers, one chip maps
-the whole batch at once.
+device analogue of the reference's worker-thread pool over a frame queue
+(``OpenCVequalHist.cpp:396-402``): instead of 1-8 CPU workers, one device
+maps the whole batch at once.
 """
 
 from __future__ import annotations
@@ -31,19 +31,8 @@ __all__ = [
 ]
 
 
-def apply_lut(y: jax.Array, lut: jax.Array, backend: str = "auto") -> jax.Array:
-    """Map a uint8 image through a 256-entry uint8 LUT.
-
-    "pallas"/"auto": MXU one-hot matmul kernel (XLA's gather lowers ~1000x
-    slower on TPU); "xla": plain jnp.take.
-    """
-    use_pallas = backend == "pallas" or (
-        backend == "auto" and jax.default_backend() == "tpu"
-    )
-    if use_pallas and y.ndim == 2:
-        from opencv_opencl_tpu.ops.pallas import lut_kernels
-
-        return lut_kernels.apply_lut_pallas(y, lut)
+def apply_lut(y: jax.Array, lut: jax.Array) -> jax.Array:
+    """Map a uint8 image through a 256-entry uint8 LUT."""
     return jnp.take(lut, y.astype(jnp.int32), axis=0)
 
 
@@ -71,9 +60,4 @@ def equalize_hist_batch(y: jax.Array, method: str = "onehot") -> jax.Array:
         lut = equalize_lut(hist256(frame, method), total=total)
         return apply_lut(frame, lut)
 
-    if 1 <= y.shape[0] <= 8:
-        # unrolled per-frame dispatches beat vmap-over-pallas for small
-        # static batches (scripts/tpu_r3_batchmap.json; same finding as
-        # ops/clahe.clahe_apply)
-        return jnp.stack([one(y[i]) for i in range(y.shape[0])])
     return jax.vmap(one)(y)

@@ -1,14 +1,15 @@
 """Jittable 256-bin histogram + OpenCV-exact equalization LUTs (JAX).
 
-Histogramming is the awkward primitive on a vector machine: 256-bin
-scatter-add does not vectorize onto the VPU.  Two strategies are provided:
+On the GPU every histogram (whole frames and CLAHE tiles alike) comes from
+the radix-16 Pallas kernel (``ops/pallas/radix_hist.py``).  That kernel has
+no CPU lowering, so on the CPU the XLA formulations below run instead,
+selected by ``method``:
 
 - ``hist256_onehot`` — chunked compare-against-iota + reduction (a one-hot
-  sum XLA fuses into compare+add without materializing the one-hot); this is
-  the TPU-friendly default, mirroring how the reference's HLS kernel streams
-  pixels through a histogram stage (``accel.cpp:53-60``).
-- ``hist256_scatter`` — a single scatter-add (``.at[y].add(1)``); often the
-  faster choice on CPU and occasionally on TPU for small images.
+  sum XLA fuses into compare+add without materializing the one-hot),
+  mirroring how the reference's HLS kernel streams pixels through a
+  histogram stage (``accel.cpp:53-60``).
+- ``hist256_scatter`` — a single scatter-add (``.at[y].add(1)``).
 
 LUT construction reproduces cv::equalizeHist exactly (see
 ``core/golden.py``): integer cumulative sums (bit-exact — no float
@@ -24,11 +25,14 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from opencv_opencl_tpu.ops.pallas import radix_hist
+
 __all__ = [
     "hist256",
     "hist256_onehot",
     "hist256_scatter",
-    "hist256_pallas",
+    "tile_histograms",
+    "uses_hist_kernel",
     "equalize_lut",
 ]
 
@@ -42,9 +46,9 @@ def _flatten_px(y: jax.Array) -> jax.Array:
 def hist256_onehot(y: jax.Array) -> jax.Array:
     """256-bin histogram via chunked compare+reduce. Returns int32[256].
 
-    Pixels are processed in static-size chunks under ``lax.scan`` so VMEM
-    pressure stays bounded at any resolution; padding pixels are set to 256
-    which matches no bin.
+    Pixels are processed in static-size chunks under ``lax.scan`` so the
+    one-hot working set stays bounded at any resolution; padding pixels are
+    set to 256, which matches no bin.
     """
     flat = _flatten_px(y)
     n = flat.size
@@ -75,49 +79,46 @@ def hist256_scatter(y: jax.Array) -> jax.Array:
     return jnp.zeros(256, jnp.int32).at[flat].add(1)
 
 
-def hist256_pallas(y: jax.Array) -> jax.Array:
-    """Full-image histogram via the VMEM-resident radix-16 Pallas kernel
-    (split into even strips that fit the VMEM budget, summed).
+def uses_hist_kernel() -> bool:
+    """Whether histograms come from the radix Pallas kernel: it is compiled
+    through Triton, which exists only for the GPU."""
+    return jax.default_backend() == "gpu"
 
-    Hardware-measured (scripts/tpu_r2_kernels.json): the radix kernel is
-    ~10x faster than the 256-row compare loop at 1080p (0.045 vs 0.44
-    ms/frame) — the round-1 histeq>CLAHE latency inversion was exactly this.
 
-    Raises ValueError when no divisor keeps a strip within budget (caller
-    falls back to the chunked scan)."""
-    from opencv_opencl_tpu.ops.pallas.lut_kernels import HIST_TILE_PX_LIMIT
-    from opencv_opencl_tpu.ops.pallas.natural import tile_histograms_radix
+_XLA_METHODS = {"onehot": hist256_onehot, "scatter": hist256_scatter}
 
-    h, w = y.shape
-    twp = -(-w // 128) * 128
-    ty = 0
-    for cand in (1, 2, 4, 8, 16, 32):
-        if h % cand == 0 and (-(-(h // cand) // 8) * 8) * twp <= HIST_TILE_PX_LIMIT:
-            ty = cand
-            break
-    if ty == 0:
-        raise ValueError("no strip split fits the VMEM histogram budget")
-    hists = tile_histograms_radix(y, ty, 1, h // ty, w)
-    return jnp.sum(hists, axis=0)
+
+def _xla_method(method: str):
+    try:
+        return _XLA_METHODS[method]
+    except KeyError:
+        raise ValueError(f"unknown histogram method {method!r}") from None
 
 
 def hist256(y: jax.Array, method: str = "onehot") -> jax.Array:
-    if method == "onehot":
-        # full 2-D images route to the Pallas kernel on TPU (the XLA scan
-        # costs ~4 ms at 4K); tiles and odd shapes keep the scan
-        if (
-            y.ndim == 2
-            and jax.default_backend() == "tpu"
-            and y.shape[0] * y.shape[1] >= 1 << 16
-        ):
-            try:
-                return hist256_pallas(y)
-            except ValueError:
-                pass  # no VMEM-sized split: fall back to the chunked scan
-        return hist256_onehot(y)
-    if method == "scatter":
-        return hist256_scatter(y)
-    raise ValueError(f"unknown histogram method {method!r}")
+    """256-bin histogram of a uint8 array, int32[256].  ``method`` picks
+    the XLA formulation where the kernel does not run."""
+    xla_hist = _xla_method(method)
+    if uses_hist_kernel() and y.ndim == 2:
+        return radix_hist.tile_histograms(y, 1, 1, *y.shape)[0]
+    return xla_hist(y)
+
+
+def tile_histograms(ext: jax.Array, tiles_y: int, tiles_x: int,
+                    tile_h: int, tile_w: int,
+                    method: str = "onehot") -> jax.Array:
+    """Per-tile histograms of a tile-divisible (tiles_y*tile_h,
+    tiles_x*tile_w) image, int32 (T, 256) in row-major tile order."""
+    xla_hist = _xla_method(method)
+    if uses_hist_kernel():
+        return radix_hist.tile_histograms(ext, tiles_y, tiles_x, tile_h,
+                                          tile_w)
+    tiles = (
+        ext.reshape(tiles_y, tile_h, tiles_x, tile_w)
+        .transpose(0, 2, 1, 3)
+        .reshape(tiles_y * tiles_x, tile_h * tile_w)
+    )
+    return jax.vmap(xla_hist)(tiles)
 
 
 @functools.partial(jax.jit, static_argnames=("total",))

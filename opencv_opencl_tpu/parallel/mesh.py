@@ -1,15 +1,15 @@
-"""Device-mesh helpers for multi-chip scaling.
+"""Device-mesh helpers for multi-device scaling.
 
 The reference's parallelism axes (SURVEY §2) map onto a 2-D
 ``jax.sharding.Mesh``:
 
 - ``data``  — frame-level data parallelism: the worker-thread pool over the
   frame queue (``OpenCVequalHist.cpp:396-402``) becomes batch sharding over
-  chips; ICI replaces the shared GAsyncQueue.
+  devices; the device interconnect replaces the shared GAsyncQueue.
 - ``space`` — intra-frame spatial parallelism: CLAHE's own N x N tile
   decomposition (``CLAHECompare.cpp:144-150``) becomes row-band sharding of
   the Y plane, with per-tile LUTs exchanged by a (tiny) all-gather and
-  global histograms reduced by psum — collectives ride ICI, never DCN.
+  global histograms reduced by psum.
 """
 
 from __future__ import annotations

@@ -1,18 +1,18 @@
-"""Multi-chip sharded enhancement: frame DP x spatial row-band sharding.
+"""Multi-device sharded enhancement: frame DP x spatial row-band sharding.
 
-The scaling story (SURVEY §2 parallelism table -> TPU):
+The scaling story (SURVEY §2 parallelism table -> a device mesh):
 
-- **data** axis: the batch of frames is sharded across chips — each chip
-  enhances its own frames end-to-end, no communication (the perfect-scaling
-  analogue of the reference's worker pool).
+- **data** axis: the batch of frames is sharded across devices — each
+  device enhances its own frames end-to-end, no communication (the
+  perfect-scaling analogue of the reference's worker pool).
 - **space** axis: each frame's rows are split into horizontal bands.
   Histogram equalization needs one *global* histogram -> ``psum`` over the
-  space axis (256 int32 = 1 KB, negligible on ICI).  CLAHE's per-tile
+  space axis (256 int32 = 1 KB).  CLAHE's per-tile
   histograms are band-local (bands own whole tile rows), and the bilinear
   blend needs neighbour tiles' LUTs -> a tiled ``all_gather`` of the
   per-band tile histograms (~tiny), after which LUT construction is
   replicated math and interpolation is band-local.  Both collectives are
-  <100 KB at 4K; the pixel data never moves between chips.
+  <100 KB at 4K; the pixel data never moves between devices.
 
 **Arbitrary geometry** (round-2 generalization — round 1 required
 tile-divisible frames and tiles_y % space == 0):
@@ -22,15 +22,14 @@ tile-divisible frames and tiles_y % space == 0):
    FAKE tile rows up to a space-divisible tile count.  Fake tiles produce
    LUTs no real pixel ever references (the interpolation clip pattern only
    reaches real tiles), so bands can own whole tile rows on any mesh.
-2. the interpolation runs over the frame padded to rs*space-aligned rows;
+2. the interpolation runs over the frame padded to space-divisible rows;
    pad rows compute garbage that is sliced off after the shard_map.
 3. both pads are applied inside jit with sharding constraints, so XLA
    inserts the (boundary-only) resharding collectives itself.
 
-The in-band compute uses the round-2 natural-layout Pallas kernels
-(``ops/pallas/natural.py``: radix-16 histograms + wide-dot interpolation,
-0 LSB on hardware), in interpret mode off-TPU; ``backend="xla"`` selects
-the pure-XLA gather formulation instead.  Pallas under shard_map requires
+The in-band compute is the single-device path (``ops.histogram
+.tile_histograms`` + ``ops.clahe._interpolate_rows``).  On the GPU the
+histograms come from a Pallas kernel, which under shard_map requires
 ``check_vma=False`` (pallas out_shapes carry no varying-manual-axes
 annotation).
 """
@@ -47,7 +46,6 @@ from opencv_opencl_tpu.models.enhancer import EnhancerConfig
 from opencv_opencl_tpu.ops import clahe as clahe_ops
 from opencv_opencl_tpu.ops import histeq as histeq_ops
 from opencv_opencl_tpu.ops import histogram as hist_ops
-from opencv_opencl_tpu.ops.pallas import natural
 
 __all__ = [
     "input_sharding",
@@ -56,9 +54,6 @@ __all__ = [
     "build_sharded_pipeline",
     "ShardedEnhancer",
 ]
-
-_BAND_RS = 8  # band row-block size: keeps row0 8-aligned on any mesh
-
 
 def _ceil_to(n: int, m: int) -> int:
     return -(-n // m) * m
@@ -70,19 +65,6 @@ def _pad_rows(x: jax.Array, rows: int) -> jax.Array:
     if cur == rows:
         return x
     return jnp.pad(x, ((0, 0), (0, rows - cur), (0, 0)))
-
-
-def _map_frames(fn, *arrays):
-    """Per-device frame map with the small-batch unroll: unrolled
-    per-frame dispatches beat vmap-over-pallas for static batches <= 8
-    (measured at 4K b4: hist 0.444 vs 0.548, interp 0.903 vs 0.949
-    ms/frame — scripts/tpu_r3_batchmap.json; same finding as
-    ops/clahe.clahe_apply).  Inside shard_map the local batch is
-    batch/data_axis, so per-device batches are small by construction."""
-    n = arrays[0].shape[0]
-    if 1 <= n <= 8:
-        return jnp.stack([fn(*(a[i] for a in arrays)) for i in range(n)])
-    return jax.vmap(fn)(*arrays)
 
 
 # ---------------------------------------------------------------- histeq ----
@@ -121,7 +103,7 @@ def sharded_histeq(mesh: Mesh, height: int, width: int,
                 ghist = ghist.at[0].add(-pad_zeros)
             lut = hist_ops.equalize_lut(ghist, total=total)
             return histeq_ops.apply_lut(f, lut)
-        return _map_frames(one, y)
+        return jax.vmap(one)(y)
 
     fn_band = shard_map(band_fn, mesh=mesh, in_specs=(spec_band,),
                         out_specs=spec_band, check_vma=False)
@@ -143,59 +125,32 @@ def _clahe_geometry(plan: clahe_ops.ClahePlan, nsp: int):
     """Static padded-grid geometry for a (space=nsp) mesh."""
     tiles_yp = _ceil_to(plan.tiles_y, nsp)
     hp = tiles_yp * plan.tile_h              # hist-stage padded rows
-    hq = _ceil_to(plan.height, _BAND_RS * nsp)  # interp-stage padded rows
+    hq = _ceil_to(plan.height, nsp)          # interp-stage padded rows
     return tiles_yp, hp, hq
 
 
 def _build_clahe_fns(plan: clahe_ops.ClahePlan, mesh: Mesh,
-                     data_axis: str, space_axis: str, backend: str):
+                     data_axis: str, space_axis: str):
     nsp = mesh.shape[space_axis]
     tiles_yp, hp, hq = _clahe_geometry(plan, nsp)
     tiles_loc = tiles_yp // nsp
     rows_loc = hq // nsp
     t_real = plan.tiles_y * plan.tiles_x
-    use_natural = backend in ("auto", "natural", "pallas")
-    nspec = None
-    if use_natural:
-        nspec = natural.make_natural_spec(
-            plan.height, plan.width, plan.clip_limit,
-            (plan.tiles_x, plan.tiles_y), rs=_BAND_RS, rows_pad=hq)
     spec_band = P(data_axis, space_axis, None)
     spec_rep = P(data_axis, None, None)
 
-    def _band_hists(band):
-        try:
-            return natural.tile_histograms_radix(
-                band, tiles_loc, plan.tiles_x, plan.tile_h, plan.tile_w)
-        except ValueError:
-            # tile block exceeds the VMEM budget (huge tiles, e.g. 1x1
-            # grids at 4K): chunked-scan fallback, same any-geometry
-            # contract as the single-chip path
-            tiles = (
-                band.reshape(tiles_loc, plan.tile_h, plan.tiles_x,
-                             plan.tile_w)
-                .transpose(0, 2, 1, 3)
-                .reshape(tiles_loc * plan.tiles_x,
-                         plan.tile_h * plan.tile_w)
-            )
-            return jax.vmap(lambda t: hist_ops.hist256(t, "onehot"))(tiles)
-
     def hist_band(ext_p):  # (B_loc, hp/nsp, We) -> (B_loc, T', 256)
         def one(band):
-            hloc = _band_hists(band)
+            hloc = hist_ops.tile_histograms(
+                band, tiles_loc, plan.tiles_x, plan.tile_h, plan.tile_w)
             return jax.lax.all_gather(hloc, space_axis, axis=0, tiled=True)
-        return _map_frames(one, ext_p)
+        return jax.vmap(one)(ext_p)
 
     def interp_band(y_band, luts):  # (B_loc, rows_loc, W), (B_loc, T, 256)
-        idx = jax.lax.axis_index(space_axis)
-        row0 = idx * rows_loc
-
-        def one(f, l):
-            if nspec is not None:
-                return natural.clahe_interpolate_natural_band(
-                    f, l, nspec, row0)
-            return clahe_ops._interpolate_rows(f, l, plan, row0)
-        return _map_frames(one, y_band, luts)
+        row0 = jax.lax.axis_index(space_axis) * rows_loc
+        return jax.vmap(
+            lambda f, l: clahe_ops._interpolate_rows(f, l, plan, row0)
+        )(y_band, luts)
 
     sm_hist = shard_map(hist_band, mesh=mesh, in_specs=(spec_band,),
                         out_specs=spec_rep, check_vma=False)
@@ -223,13 +178,12 @@ def _build_clahe_fns(plan: clahe_ops.ClahePlan, mesh: Mesh,
 
 def sharded_clahe(mesh: Mesh, plan: clahe_ops.ClahePlan,
                   method: str = "onehot",
-                  data_axis: str = "data", space_axis: str = "space",
-                  backend: str = "auto"):
+                  data_axis: str = "data", space_axis: str = "space"):
     """Jitted (N, H, W) -> (N, H, W) CLAHE over a (data, space) mesh.
 
     Works for ANY frame geometry, tile grid, and space-axis size (see the
     module docstring for the padded-grid scheme)."""
-    clahe_y, _ = _build_clahe_fns(plan, mesh, data_axis, space_axis, backend)
+    clahe_y, _ = _build_clahe_fns(plan, mesh, data_axis, space_axis)
     return jax.jit(clahe_y)
 
 
@@ -259,7 +213,7 @@ def build_sharded_pipeline(cfg: EnhancerConfig, height: int, width: int,
         plan = clahe_ops.make_clahe_plan(
             height, width, float(cfg.clip_limit), tuple(cfg.tile_grid))
         clahe_y, y_sharding = _build_clahe_fns(
-            plan, mesh, data_axis, space_axis, "auto")
+            plan, mesh, data_axis, space_axis)
 
         @jax.jit
         def fn(y, uv):
@@ -297,15 +251,15 @@ def build_sharded_pipeline(cfg: EnhancerConfig, height: int, width: int,
 
 
 class ShardedEnhancer:
-    """Drop-in multi-chip replacement for ``models.enhancer.Enhancer``:
+    """Drop-in multi-device replacement for ``models.enhancer.Enhancer``:
     the same ``process_batch(nv12_batch) -> nv12_batch`` surface the
     FrameFeeder drives, with the batch sharded over the ``data`` axis and
     each frame's rows banded over ``space`` (collectives per the module
     docstring).  The relay exposes it as ``--mesh=auto`` / ``--mesh=DxS``
-    — the multi-chip analogue of the reference's ``--workers`` scaling
+    — the multi-device analogue of the reference's ``--workers`` scaling
     (``OpenCLequalHist.cpp`` worker pool).
 
-    The batch size must be a multiple of the mesh's data axis (each chip
+    The batch size must be a multiple of the mesh's data axis (each device
     owns whole frames).
     """
 

@@ -1,4 +1,4 @@
-"""Multi-chip fused enhance+encode: GOP-per-device data parallelism.
+"""Multi-device fused enhance+encode: GOP-per-device data parallelism.
 
 The encoder's only sequential dependency is the in-GOP reconstruction
 chain — every GOP starts with an IDR whose intra program ignores the
@@ -8,9 +8,9 @@ output: shard the frame axis over the whole mesh in whole-GOP blocks
 and let every device run the same fused enhance+GOP scan
 (models/fused_encode.build_enhance_gop_fn) over its own GOPs, starting
 from zero recon planes that the IDR branch never reads.  No
-collectives cross the ICI at all — the scaling shape is the
+collectives at all — the scaling shape is the
 reference's worker pool (``/root/reference/OpenCVequalHist.cpp:396-402``)
-lifted from threads-over-frames to chips-over-GOPs, which is the
+lifted from threads-over-frames to devices-over-GOPs, which is the
 correct granularity for a codec: frames inside a GOP are causally
 chained, GOPs are not.
 
@@ -149,7 +149,7 @@ class BandedTpuGopEncoder:
 
     Byte-identity by construction, reusing the single-chip programs
     unchanged: every device ``all_gather``s the reference planes over
-    ICI (the only collective; ~12 MB at 4K), slices a 16-aligned
+    the interconnect (the only collective; ~12 MB at 4K), slices a 16-aligned
     WINDOW around its band — the band rows plus ``S16`` halo rows
     covering the motion-search reach and the 6-tap/bilinear
     interpolation support, edge-replicated exactly like the

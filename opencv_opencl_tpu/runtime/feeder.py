@@ -1,6 +1,6 @@
-"""Host->TPU double-buffered frame feeder — the processing engine.
+"""Host->device double-buffered frame feeder — the processing engine.
 
-Rebuilds the reference's L2 transport + L3 dispatch as a TPU pipeline:
+Rebuilds the reference's L2 transport + L3 dispatch as a device pipeline:
 
 reference                                  here
 ---------------------------------------   -----------------------------------
@@ -13,10 +13,10 @@ ProcessedFrame re-order map (binary-only)  Resequencer
 appsrc push                                on_output callback
 
 Double buffering: JAX dispatch is asynchronous, so the feeder keeps up to
-``depth`` batches in flight — while batch i is executing on the TPU, batch
+``depth`` batches in flight — while batch i is executing on the device, batch
 i+1 is staged and dispatched; only then is batch i's result materialized to
-host memory.  This overlaps host->HBM transfer, device compute, and
-HBM->host readback exactly like the reference overlaps its per-worker
+host memory.  This overlaps host->device transfer, device compute, and
+device->host readback exactly like the reference overlaps its per-worker
 OpenCL command queues.
 
 The ``workers`` knob of the reference CLIs (clamped to 8,

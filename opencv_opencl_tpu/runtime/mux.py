@@ -1,13 +1,12 @@
-"""Multi-stream serving: N independent streams through ONE chip.
+"""Multi-stream serving: N independent streams through ONE device.
 
 The reference runs one stream per process (each relay binary owns one
-camera/file and one UDP peer).  A TPU chip is ~10x faster than one 4K60
-stream needs (687 fps/chip, docs/RESULTS_R2.md), so the production-
-serving shape is many streams per chip.  ``StreamMux`` multiplexes
-frames from N streams into the shared :class:`FrameFeeder` — the batch
-axis IS the worker pool, so frames of different streams ride the same
-device dispatch — and routes outputs back per stream, in order, with
-per-stream accounting.
+camera/file and one UDP peer).  One device has room for several streams,
+so the production-serving shape is many streams per device.
+``StreamMux`` multiplexes frames from N streams into the shared
+:class:`FrameFeeder` — the batch axis IS the worker pool, so frames of
+different streams ride the same device dispatch — and routes outputs
+back per stream, in order, with per-stream accounting.
 
 Ordering: the feeder's global :class:`Resequencer` emits in global
 submit order, and each stream's frames are submitted in its own order,

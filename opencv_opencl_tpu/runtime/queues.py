@@ -66,7 +66,7 @@ class LeakyQueue:
 
     def get_batch(self, max_items: int, timeout: float | None = None) -> list[Any]:
         """Dequeue 1..max_items items: blocks for the first, then drains
-        whatever else is immediately available (batching for the TPU)."""
+        whatever else is immediately available (batching for the device)."""
         first = self.get(timeout)
         out = [first]
         with self._lock:

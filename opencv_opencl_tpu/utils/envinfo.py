@@ -1,6 +1,6 @@
 """Environment/device discovery report.
 
-The TPU analogue of the reference's accelerator discovery prints
+The device analogue of the reference's accelerator discovery prints
 (``xcl::get_xil_devices`` + device name + xclbin load banner,
 ``OpenCLequalHist.cpp:106-140``): one call that reports what compute is
 available and how the framework will use it.
@@ -16,16 +16,18 @@ def env_report() -> dict:
 
     import opencv_opencl_tpu
     from opencv_opencl_tpu import native
+    from opencv_opencl_tpu.ops.histogram import uses_hist_kernel
 
     devices = jax.devices()
-    backend = jax.default_backend()
     report = {
         "framework_version": opencv_opencl_tpu.__version__,
         "jax_version": jax.__version__,
-        "backend": backend,
+        "platform": devices[0].platform,
+        "device_kind": devices[0].device_kind,
         "devices": [str(d) for d in devices],
         "device_count": len(devices),
-        "pallas_kernels": backend == "tpu",
+        "histogram_path": ("radix Pallas kernel (Triton)"
+                           if uses_hist_kernel() else "XLA"),
         "native_runtime": native.available(),
     }
     if not native.available():
@@ -49,9 +51,9 @@ def print_env_report() -> None:
     r = env_report()
     print("=== opencv_opencl_tpu environment ===")
     print(f"Framework:        {r['framework_version']} (jax {r['jax_version']})")
-    print(f"Compute backend:  {r['backend']} "
+    print(f"Compute platform: {r['platform']} {r['device_kind']} "
           f"({r['device_count']} device(s): {', '.join(r['devices'])})")
-    print(f"Pallas kernels:   {'compiled (TPU)' if r['pallas_kernels'] else 'interpret/XLA fallback'}")
+    print(f"Histograms:       {r['histogram_path']}")
     print(f"Native runtime:   {'available' if r['native_runtime'] else 'unavailable'}")
     print(f"OpenCV oracle:    {r['opencv_oracle'] or 'not installed'}")
     print(f"GStreamer python: {'yes' if r['gstreamer_python'] else 'no (cv2 file I/O fallback)'}")

@@ -24,13 +24,17 @@ def rng():
 class TestClaheApprox:
     def test_cross_backend_consistency(self, rng):
         """The approximate mode is deterministic and identical between
-        the pallas (interpret) and xla formulations."""
+        the histogram kernel (interpret mode) and the XLA formulation."""
+        from opencv_opencl_tpu.ops.pallas import radix_hist
+
         y = rng.integers(0, 256, (128, 256), np.uint8)
         plan = cops.make_clahe_plan(128, 256, 2.0, (8, 8))  # tile_h 16
-        a = np.asarray(cops.clahe_apply(y, plan, backend="natural",
-                                        hist_rowstep=2))
-        b = np.asarray(cops.clahe_apply(y, plan, backend="xla",
-                                        hist_rowstep=2))
+        hists = 2 * radix_hist.tile_histograms(
+            cops._extend(y, plan)[::2], plan.tiles_y, plan.tiles_x,
+            plan.tile_h // 2, plan.tile_w, interpret=True)
+        a = np.asarray(cops._interpolate(
+            y, cops._luts_from_hists(hists, plan), plan))
+        b = np.asarray(cops.clahe_apply(y, plan, hist_rowstep=2))
         assert np.array_equal(a, b)
 
     @pytest.mark.parametrize("ds,mean_bound,max_bound",

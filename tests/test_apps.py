@@ -86,7 +86,7 @@ def test_parity_bench_histeq(small_png, capsys):
     assert rc == 0
     assert "Results match!" in text
     assert "OpenCV histeq time" in text
-    assert "TPU histeq time" in text
+    assert "device histeq time" in text
 
 
 def test_parity_bench_clahe(small_png, capsys):

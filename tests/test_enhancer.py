@@ -97,8 +97,9 @@ def test_presets_registry():
 
 
 def test_build_enhance_fn_donates_input_buffer():
-    """The jitted step aliases input->output (no second HBM frame buffer):
-    the compiled HLO must carry the input_output_alias directive."""
+    """The jitted step aliases input->output (no second frame buffer in
+    device memory): the compiled HLO must carry the input_output_alias
+    directive."""
     import numpy as np
 
     from opencv_opencl_tpu.core.frames import ChromaPolicy, FrameSpec

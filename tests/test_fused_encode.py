@@ -1,7 +1,7 @@
 """Fused enhance + H.264 encode device program (models/fused_encode.py).
 
 Contract: the fused program's stream is BYTE-IDENTICAL to running the
-plain enhancement program and the TPU CAVLC encoder separately at the
+plain enhancement program and the device CAVLC encoder separately at the
 same qp — for every enhancement op, chroma policy, and non-16-aligned
 geometry.  (Reference analogue: the VCU consumes enhanced frames on the
 device side of appsrc, ``OpenCVequalHist.cpp:308-332``.)
@@ -122,7 +122,7 @@ class TestFusedGop:
             frames[i] = frames[i - 1].copy()
             frames[i][5:25, 8 + 4 * i:40 + 4 * i] ^= 0x5A
 
-        # unfused: enhancement program -> host -> TPU GOP encoder
+        # unfused: enhancement program -> host -> device GOP encoder
         plain = build_enhance_fn(cfg, spec, donate=False)
         enh = np.asarray(plain(frames))
         ref_enc = TpuGopEncoder(w, h, qp=qp, gop=gop)
@@ -286,7 +286,7 @@ class TestFusedGop:
 class TestFusedRelay:
     def test_relay_fused_loopback(self):
         """relay --fused-encode streams decodable AUs over RTP, byte-
-        identical to the unfused TPU-encoder relay on the same source."""
+        identical to the unfused device-encoder relay on the same source."""
         import threading
         import time
 

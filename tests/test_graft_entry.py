@@ -1,10 +1,10 @@
 """The driver contract: entry() compiles and dryrun_multichip(n) executes.
 
-Round-1 regression: MULTICHIP_r01.json recorded rc=1 ("requested 8 devices,
-have 1") because dryrun_multichip never provisioned the virtual CPU mesh
-itself.  Here conftest already provides 8 CPU devices, so the in-process
-branch runs; the subprocess fallback is exercised separately for an n the
-parent cannot satisfy.
+Regression: dryrun_multichip once failed with "requested 8 devices, have 1"
+because it never provisioned the virtual CPU mesh itself.  Here conftest
+already provides 8 CPU devices, so the in-process branch runs; the
+subprocess fallback is exercised separately for an n the parent cannot
+satisfy.
 """
 
 import subprocess

@@ -6,7 +6,7 @@ refreshes the picture every ``gdr`` frames; each wave start carries
 SPS+PPS+recovery point SEI.  Conformance bars: continuous decode stays
 bit-exact through libavcodec; a MID-STREAM JOINER (drop every AU before
 a recovery point) gets bit-identical output from the wave-completion
-frame on — the exact_match_flag=1 promise; and the TPU path is
+frame on — the exact_match_flag=1 promise; and the device path is
 byte-identical to the oracle.
 """
 

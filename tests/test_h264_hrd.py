@@ -6,7 +6,7 @@ ADVERSARIAL content (scene cuts between noise patterns), an
 INDEPENDENT decoder-side HRD simulation — arrival over a busy channel
 vs. the removal schedule, written from first principles, not the
 encoder's own model — shows ZERO violations at the declared CPB; the
-VUI-carrying SPS decodes bit-exactly through libavcodec; and the TPU
+VUI-carrying SPS decodes bit-exactly through libavcodec; and the device
 path stays byte-identical to the oracle.
 """
 

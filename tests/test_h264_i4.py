@@ -136,7 +136,7 @@ class TestDecision:
 
 class TestDeviceTwin:
     """ops/h264_levels.encode_levels(i4=True) — byte-exact stream twin
-    of the oracle at one slice per MB row (the TPU contract)."""
+    of the oracle at one slice per MB row (the device contract)."""
 
     W2, H2 = 96, 64     # small: the i4 program unrolls 16 x 9 trials
 

@@ -1,12 +1,11 @@
-"""TPU GOP path (ops/h264_levels.encode_p_levels + TpuGopEncoder).
+"""Device GOP path (ops/h264_levels.encode_p_levels + TpuGopEncoder).
 
-Contract chain: the TPU P program (per-MB skip/inter/intra decision,
+Contract chain: the device P program (per-MB skip/inter/intra decision,
 device-resident reconstruction) must be BYTE-IDENTICAL to
 ``GopCavlcEncoder(slices=mb_h)`` — the per-MB-row oracle — which is
 decoder-conformance proven in tests/test_h264_inter.py.  On CPU the jit
 runs on the virtual backend; the arithmetic is integer-only, so the
-platform cannot change the bytes (hardware re-validation:
-scripts/tpu_r3_pframe.py).
+platform cannot change the bytes (chip_smoke.py checks them on the GPU).
 """
 
 from __future__ import annotations
@@ -105,7 +104,7 @@ class TestEncoderBoundaryTpuGop:
                             bitrate_kbps=300)
         assert isinstance(enc2, TpuGopEncoder) and enc2._overlap
         assert enc2.bitrate_kbps == 300
-        # gop=1 stays the all-IDR TPU encoder
+        # gop=1 stays the all-IDR device encoder
         enc3 = make_encoder("tpu:qp=30:gop=1", 96, 64)
         assert type(enc3) is TpuCavlcEncoder
         with pytest.raises(ValueError):
@@ -227,7 +226,7 @@ class TestFullReconVariant:
 
 class TestTpuMotionSearch:
     """Device motion search (ops/h264_levels.motion_search_mc): the
-    TPU GOP stream with search=R must be byte-identical to the oracle
+    device GOP stream with search=R must be byte-identical to the oracle
     GopCavlcEncoder(slices=mb_h, search=R) — covering the shared SAD
     candidate order/packing, the MC planes, the mv==0 skip guard, and
     the left-only mvd rule in the entropy stage."""
@@ -814,7 +813,7 @@ class TestNativeMultiRefEntropy:
 class TestFuzzTpuParity:
     @pytest.mark.parametrize("seed", [10, 11, 12])
     def test_random_config_byte_identical(self, seed):
-        """Property fuzz: random config — TPU stream == CPU oracle."""
+        """Property fuzz: random config — device stream == CPU oracle."""
         rng = np.random.default_rng(seed)
         w = int(rng.integers(3, 7)) * 16
         h = int(rng.integers(3, 6)) * 16

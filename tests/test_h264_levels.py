@@ -1,13 +1,13 @@
-"""TPU H.264 level-computation parity (ops/h264_levels.py).
+"""Device H.264 level-computation parity (ops/h264_levels.py).
 
-Contract chain: the TPU path (JAX levels + entropy coding) must be
+Contract chain: the device path (JAX levels + entropy coding) must be
 BYTE-IDENTICAL to ``encode_frame_cavlc_slices(slices=mb_h)`` — the
 per-MB-row multi-slice oracle — which is itself decoder-conformance
 proven through libavcodec (tests/test_cavlc.py).  Both entropy coders
 are diffed: the pure-Python ``encode_frame_from_levels`` and the native
 ``fp_cavlc_entropy_rows``.  On CPU the jit runs on the virtual-device
 backend; the arithmetic is integer-only, so platform cannot change the
-bytes (hardware re-validation: scripts/tpu_r3_tpuenc.py).
+bytes (chip_smoke.py checks them on the GPU).
 """
 
 from __future__ import annotations
@@ -131,7 +131,7 @@ class TestNativeEntropy:
 class TestTpuCavlcEncoder:
     def test_au_identical_to_cpu_encoder(self):
         """The encoder protocol end-to-end (odd geometry exercises the
-        pad/crop path): TPU AUs == CavlcH264Encoder(slices=mb_h)."""
+        pad/crop path): device AUs == CavlcH264Encoder(slices=mb_h)."""
         w, h = 190, 106  # pads to 192x112 -> 7 MB rows
         cpu = CavlcH264Encoder(w, h, qp=27, slices=112 // 16,
                                native="never")
@@ -266,3 +266,59 @@ class TestIntraHorizontal:
         # the vertical ramp rides H prediction; the horizontal ramp
         # has no top neighbor (one slice per row) so DC must code it
         assert sz_v < 0.7 * sz_h, (sz_v, sz_h)
+
+
+class TestSadAndUnroll:
+    """Motion-search SAD fields are int32 block sums; the MB-column scan
+    unroll is chosen from the platform."""
+
+    @staticmethod
+    def _diff(rng, h, w):
+        return rng.integers(-255, 256, (h, w)).astype(np.int16)
+
+    @pytest.mark.parametrize("h,w,b", [(32, 48, 16), (64, 1920, 16),
+                                       (48, 32, 8), (16, 16, 4)])
+    def test_sad_field(self, h, w, b):
+        import jax.numpy as jnp
+
+        from opencv_opencl_tpu.ops.h264_levels import _sad_field
+
+        ad = self._diff(np.random.default_rng(h * w + b), h, w)
+        ref = np.abs(ad.astype(np.int64)).reshape(
+            h // b, b, w // b, b).sum(axis=(1, 3))
+        got = np.asarray(_sad_field(jnp.asarray(ad), b))
+        assert got.dtype == np.int32 and np.array_equal(got, ref)
+
+    def test_sad_field_extreme(self):
+        import jax.numpy as jnp
+
+        from opencv_opencl_tpu.ops.h264_levels import _sad_field
+
+        ad = np.full((32, 32), -255, np.int16)
+        assert (np.asarray(_sad_field(jnp.asarray(ad), 16)) == 65280).all()
+
+    @pytest.mark.parametrize("h,w", [(16, 16), (48, 80), (1088, 64)])
+    def test_sad_quad_fields(self, h, w):
+        import jax.numpy as jnp
+
+        from opencv_opencl_tpu.ops.h264_levels import _sad_quad_fields
+
+        ad = self._diff(np.random.default_rng(h + w), h, w)
+        a = np.abs(ad.astype(np.int64))
+        ref = np.zeros((4, h // 16, w // 16), np.int64)
+        for qi, (oy, ox) in enumerate(((0, 0), (0, 8), (8, 0), (8, 8))):
+            blk = a.reshape(h // 16, 16, w // 16, 16)[:, oy:oy + 8, :,
+                                                      ox:ox + 8]
+            ref[qi] = blk.sum(axis=(1, 3))
+        got = _sad_quad_fields(jnp.asarray(ad))
+        for qi in range(4):
+            assert np.array_equal(np.asarray(got[qi]), ref[qi]), qi
+
+    @pytest.mark.parametrize("backend,unroll", [("gpu", 8), ("cpu", 1)])
+    def test_scan_unroll_by_platform(self, monkeypatch, backend, unroll):
+        import jax
+
+        from opencv_opencl_tpu.ops import h264_levels
+
+        monkeypatch.setattr(jax, "default_backend", lambda: backend)
+        assert h264_levels._scan_unroll() == unroll

@@ -1,12 +1,12 @@
 """Sub-16x16 inter partitions (16x8 / 8x16 / 8x8 with per-partition
 mvd): the VCU's low-delay-P partition coding
 (/root/reference/OpenCVequalHist.cpp:313-315) rebuilt on the shared
-oracle/TPU contract:
+oracle/device contract:
 
 - the oracle stream must be libavcodec-conformant with BIT-IDENTICAL
   reconstruction (proves mb_type/sub_mb_type/mvd and the one-row-slice
   8.4.1.3 predictor collapse against a real decoder);
-- the TPU program (ops/h264_levels.encode_p_levels parts=1) must be
+- the device program (ops/h264_levels.encode_p_levels parts=1) must be
   byte-identical to the oracle;
 - partitions must MEASURABLY beat P_16x16 on shear/rotation content
   (the round-4 verdict's acceptance bar).
@@ -164,7 +164,7 @@ class TestOracle:
                             parts=True)
 
 
-# ------------------------------------------------------------- TPU twin
+# ------------------------------------------------------------- device twin
 
 class TestTpuParity:
     @pytest.mark.parametrize("kw", [

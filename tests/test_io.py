@@ -158,8 +158,10 @@ def test_env_report():
     from opencv_opencl_tpu.utils import env_report
 
     r = env_report()
-    assert r["backend"] == "cpu"  # conftest forces cpu
+    assert r["platform"] == "cpu"  # conftest forces cpu
     assert r["device_count"] == 8
+    assert r["device_kind"]
+    assert r["histogram_path"] == "XLA"
     assert r["opencv_oracle"]
     assert r["native_runtime"] in (True, False)
 

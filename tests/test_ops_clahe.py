@@ -1,8 +1,8 @@
 """JAX CLAHE ops vs cv2.
 
 Contract: the reference accuracy bar is absdiff <= 1 with 0% exceedance
-(1frameMeasure.cpp:94-99).  On TPU the ops are bit-exact (0 LSB — verified
-on hardware by apps/parity_bench).  On the CPU test backend LLVM contracts
+(1frameMeasure.cpp:94-99).  On the GPU the ops are bit-exact (0 LSB against
+core/golden, checked by chip_smoke.py).  On the CPU test backend LLVM contracts
 the bilinear blend's mul+add into FMAs, which flips rare exact-tie pixels
 (e.g. 207.5 vs 207.4999847) by 1 LSB — so here the assertion is the hard
 <=1 bar plus a tight mismatch-fraction limit that would catch any real
@@ -97,11 +97,11 @@ def test_clahe_huge_clip_no_clipping(rng):
 
 
 def test_clahe_pallas_odd_1080p_slice(rng):
-    """Interpret-mode pallas on an odd-size frame slice (reflect padding in
-    the LUT stage, original-size interpolation)."""
+    """An odd-size frame slice (reflect padding in the LUT stage,
+    original-size interpolation)."""
     from tests.conftest import assert_clahe_close
 
     y = rng.integers(0, 256, (135, 241), dtype=np.uint8)
-    out = np.asarray(clahe_ops.clahe(y, 2.0, (8, 8), backend="pallas"))
+    out = np.asarray(clahe_ops.clahe(y, 2.0, (8, 8)))
     ref = cv2.createCLAHE(clipLimit=2.0, tileGridSize=(8, 8)).apply(y)
     assert_clahe_close(out, ref)

@@ -139,13 +139,13 @@ def test_full_sharded_pipeline_gray_histeq(rng):
 
 
 def test_sharded_clahe_pallas_band(rng):
-    """The pallas band-interpolation path under shard_map (interpret mode):
-    must match cv2 within the CLAHE bar for both space-axis sizes."""
+    """The band-interpolation path under shard_map: must match cv2 within
+    the CLAHE bar for both space-axis sizes."""
     for shape, nsp in [((2, 2), None), ((2, 4), None)]:
         mesh = make_mesh(shape[0] * shape[1], shape=shape)
         batch = rng.integers(0, 256, (2, 64, 128), dtype=np.uint8)
         plan = clahe_ops.make_clahe_plan(64, 128, 2.0, (8, 8))
-        fn = sharded_clahe(mesh, plan, backend="pallas")
+        fn = sharded_clahe(mesh, plan)
         out = np.asarray(fn(batch))
         c = cv2.createCLAHE(clipLimit=2.0, tileGridSize=(8, 8))
         for i in range(2):

@@ -24,7 +24,7 @@ class TestPageServing:
         try:
             base = f"http://127.0.0.1:{server.port}"
             for path, marker in [
-                ("/", "TPU relay viewer"),
+                ("/", "Relay viewer"),
                 ("/viewer.html", "protocol.js"),
                 ("/stats.html", "Connection stats"),
                 ("/protocol.js", "createViewerProtocol"),
